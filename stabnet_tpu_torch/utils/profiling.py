@@ -1,0 +1,46 @@
+"""Per-stage wall-clock timing (the reference prints deploy fps every 10
+frames, deploy_bundle.py:285-287,316-318; here the same signal is a summary).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from collections import defaultdict
+from typing import Dict, Iterator, List
+
+import numpy as np
+
+
+class StageTimer:
+    """Named per-stage timers with percentile summaries.
+
+    The streaming driver's per-frame latency decomposition
+    ("pre"/"dispatch"/"readback", StreamDriver.stabilize_clip, and "net",
+    which spans dispatch and readback of one frame).  On CUDA, "dispatch"
+    measures the enqueue and "readback" the wait for the device.
+    """
+
+    def __init__(self) -> None:
+        self.samples: Dict[str, List[float]] = defaultdict(list)
+
+    @contextlib.contextmanager
+    def stage(self, name: str) -> Iterator[None]:
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.samples[name].append(time.perf_counter() - t0)
+
+    def summary(self) -> Dict[str, Dict[str, float]]:
+        out = {}
+        for name, xs in self.samples.items():
+            a = np.asarray(xs)
+            out[name] = {
+                "count": int(a.size),
+                "total_s": float(a.sum()),
+                "mean_ms": float(a.mean() * 1e3),
+                "p50_ms": float(np.percentile(a, 50) * 1e3),
+                "p95_ms": float(np.percentile(a, 95) * 1e3),
+            }
+        return out
