@@ -1,4 +1,5 @@
-"""StabNet serving on PyTorch and CUDA: a port of the JAX package `stabnet_tpu`.
+"""StabNet serving and training on PyTorch and CUDA: a port of the JAX package
+`stabnet_tpu`.
 
 Imports torch and numpy only (cv2 lazily, for video files).  The warp kernels
 are hand-written CUDA for Hopper (csrc/), built on first use.

@@ -1,10 +1,18 @@
-"""StabNet serving CLI on PyTorch.
+"""StabNet CLI on PyTorch: serving, training and synthetic data.
 
 Usage:
   python -m stabnet_tpu_torch.cli.main stabilize --config v2_93 \
       --test-list data_video/test_list --prefix data_video \
       --output-dir out [--weights weights.npz] [--refine N] \
       [--output-size H W] [--device-gray] [--device cuda|cpu]
+  python -m stabnet_tpu_torch.cli.main make-synthetic --out data/train \
+      --num 256 [--config tiny] [--seed 0]
+  python -m stabnet_tpu_torch.cli.main train --config v2_93 --data data/ \
+      [--model-dir DIR] [--log-dir DIR] [--restore] [--steps N] \
+      [--set key=value ...] [--seed 0] [--tensorboard] [--device cuda|cpu]
+
+`train` reads record shards from `<data>/train` and, if it exists,
+`<data>/test` (reference: train_bundle_nobm.py:34-37).
 
 For each video name in the list file(s), reads `<prefix>/unstable/<name>` and
 writes `<output-dir>/output/<name>.avi` and `<name>_cut.avi` (reference:
@@ -74,9 +82,76 @@ def cmd_stabilize(args):
         sys.exit(1)
 
 
+def cmd_train(args):
+    import logging
+
+    from stabnet_tpu_torch.config import apply_overrides, get_config
+    from stabnet_tpu_torch.data.pipeline import InputPipeline
+    from stabnet_tpu_torch.train.checkpoint import latest_step
+    from stabnet_tpu_torch.train.loop import train
+
+    logging.basicConfig(level=logging.INFO, format="%(message)s")
+    cfg = apply_overrides(get_config(args.config), args.set)
+    if args.model_dir:
+        cfg = cfg.replace(model_dir=args.model_dir)
+    if args.log_dir:
+        cfg = cfg.replace(log_dir=args.log_dir)
+    # The resume step decorrelates the shuffle and augmentation streams, so
+    # a restored segment continues with fresh batches.
+    resume_step = (latest_step(cfg.model_dir) or 0) if args.restore else 0
+    train_it = InputPipeline(os.path.join(args.data, "train"), cfg,
+                             seed=args.seed, start_step=resume_step,
+                             device=args.device)
+    test_dir = os.path.join(args.data, "test")
+    test_it = (InputPipeline(test_dir, cfg, seed=args.seed + 1, device=args.device)
+               if os.path.isdir(test_dir) else None)
+    try:
+        train(cfg, train_it, test_it, restore=args.restore, num_steps=args.steps,
+              seed=args.seed, tensorboard=args.tensorboard, device=args.device)
+    finally:
+        for it in (train_it, test_it):
+            if it is not None:
+                it.close()
+
+
+def cmd_make_synthetic(args):
+    from stabnet_tpu_torch.config import get_config
+    from stabnet_tpu_torch.data.records import write_synthetic_dataset
+
+    write_synthetic_dataset(args.out, get_config(args.config), args.num,
+                            seed=args.seed)
+    print(f"wrote {args.num} synthetic examples -> {args.out}")
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="stabnet_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("train", help="train StabNet (train_bundle_nobm equivalent)")
+    p.add_argument("--config", default="v2_93")
+    p.add_argument("--data", default="data/")
+    p.add_argument("--model-dir", default=None)
+    p.add_argument("--log-dir", default=None)
+    p.add_argument("--restore", action="store_true")
+    p.add_argument("--steps", type=int, default=None)
+    p.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
+                   help="override a config field (repeatable), e.g. "
+                        "--set step_size=4000")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--tensorboard", action="store_true",
+                   help="mirror the metrics to TensorBoard event files under "
+                        "<log-dir>/tb")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; cpu runs the plain "
+                        "PyTorch versions of the kernels)")
+    p.set_defaults(fn=cmd_train)
+
+    p = sub.add_parser("make-synthetic", help="generate a synthetic dataset")
+    p.add_argument("--out", required=True)
+    p.add_argument("--num", type=int, default=256)
+    p.add_argument("--config", default="tiny")
+    p.add_argument("--seed", type=int, default=0)
+    p.set_defaults(fn=cmd_make_synthetic)
     p = sub.add_parser("stabilize", help="streaming deploy (deploy_bundle equivalent)")
     p.add_argument("--config", default="v2_93")
     p.add_argument("--test-list", nargs="+",

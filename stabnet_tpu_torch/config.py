@@ -124,6 +124,14 @@ class StabNetConfig:
         """Ring-buffer length = farthest history offset (deploy_bundle.py:41)."""
         return max(self.indices)
 
+    def rand_h_min(self) -> Tuple[Tuple[float, ...], ...]:
+        """Lower bounds of the random homography augmentation (configs/v2_93.py:38)."""
+        return ((0.9, -0.1, -0.5), (-0.1, 0.9, -0.5), (-0.1, -0.1, 1.0))
+
+    def rand_h_max(self) -> Tuple[Tuple[float, ...], ...]:
+        """Upper bounds of the random homography augmentation (configs/v2_93.py:37)."""
+        return ((1.1, 0.1, 0.5), (0.1, 1.1, 0.5), (0.1, 0.1, 1.0))
+
     def replace(self, **kw) -> "StabNetConfig":
         return dataclasses.replace(self, **kw)
 
@@ -157,3 +165,29 @@ def get_config(name: str = "v2_93") -> StabNetConfig:
         return _REGISTRY[name]
     except KeyError:
         raise KeyError(f"unknown config '{name}'; known: {sorted(_REGISTRY)}")
+
+
+def apply_overrides(cfg: StabNetConfig, assignments) -> StabNetConfig:
+    """Apply "key=value" override strings, coerced to each field's type
+    (`train --set key=value`).  Booleans accept true/false/1/0/yes/no;
+    tuples take comma-separated values."""
+    fields = {f.name for f in dataclasses.fields(cfg)}
+    kw = {}
+    for a in assignments:
+        key, eq, raw = a.partition("=")
+        if not eq:
+            raise ValueError(f"--set expects key=value, got {a!r}")
+        if key not in fields:
+            raise KeyError(f"unknown config field {key!r}; known: "
+                           f"{sorted(fields)}")
+        cur = getattr(cfg, key)
+        if isinstance(cur, bool):
+            low = raw.lower()
+            if low not in ("true", "false", "1", "0", "yes", "no"):
+                raise ValueError(f"--set {key}: not a boolean: {raw!r}")
+            kw[key] = low in ("true", "1", "yes")
+        elif isinstance(cur, tuple):
+            kw[key] = tuple(type(cur[0])(v) if cur else v for v in raw.split(","))
+        else:
+            kw[key] = type(cur)(raw)
+    return cfg.replace(**kw)

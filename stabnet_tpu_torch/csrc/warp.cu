@@ -47,57 +47,36 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bilinear.cuh"
+
+using stabnet::blocks_for;
+using stabnet::kThreads;
+using stabnet::ndc_to_pixel;
+
 namespace {
 
-// Reference bilinear tap of one (batch, channel) plane.  `x`, `y` are pixel
-// coordinates ((ndc + 1) * size / 2).  Corners are clamped and the weights
-// are built from the CLAMPED corners, so samples fade to zero outside the
-// frame; with `strict` a sample at exactly W-1 (H-1) gives 0, without it the
-// edge pixel is included (stabnet_tpu/ops/pallas_warp.py:184-189).
+// Reference bilinear sample of one (batch, channel) plane at pixel
+// coordinates (x, y) (see bilinear.cuh for the tap geometry).
 template <typename T>
 __device__ __forceinline__ float sample_plane(const T* __restrict__ plane,
                                               long long sx, long long sy,
                                               int H, int W, float x, float y,
                                               bool strict) {
-  float x0 = floorf(x);
-  float y0 = floorf(y);
-  if (!strict) {
-    if (x == (float)(W - 1)) x0 = __fsub_rn(x0, 1.0f);
-    if (y == (float)(H - 1)) y0 = __fsub_rn(y0, 1.0f);
-  }
-  const float wmax = (float)(W - 1);
-  const float hmax = (float)(H - 1);
-  const float x0c = fminf(fmaxf(x0, 0.0f), wmax);
-  const float x1c = fminf(fmaxf(__fadd_rn(x0, 1.0f), 0.0f), wmax);
-  const float y0c = fminf(fmaxf(y0, 0.0f), hmax);
-  const float y1c = fminf(fmaxf(__fadd_rn(y0, 1.0f), 0.0f), hmax);
-
-  const float ax = __fsub_rn(x1c, x);
-  const float bx = __fsub_rn(x, x0c);
-  const float ay = __fsub_rn(y1c, y);
-  const float by = __fsub_rn(y, y0c);
-  const float wa = __fmul_rn(ax, ay);
-  const float wb = __fmul_rn(ax, by);
-  const float wc = __fmul_rn(bx, ay);
-  const float wd = __fmul_rn(bx, by);
-
-  const long long ix0 = (long long)x0c * sx, ix1 = (long long)x1c * sx;
-  const long long iy0 = (long long)y0c * sy, iy1 = (long long)y1c * sy;
-  const float Ia = (float)plane[iy0 + ix0];
-  const float Ib = (float)plane[iy1 + ix0];
-  const float Ic = (float)plane[iy0 + ix1];
-  const float Id = (float)plane[iy1 + ix1];
+  const stabnet::Taps t = stabnet::clamped_taps(x, y, H, W, sx, sy, strict);
+  const float wa = __fmul_rn(t.ax, t.ay);
+  const float wb = __fmul_rn(t.ax, t.by);
+  const float wc = __fmul_rn(t.bx, t.ay);
+  const float wd = __fmul_rn(t.bx, t.by);
+  const float Ia = (float)plane[t.a];
+  const float Ib = (float)plane[t.b];
+  const float Ic = (float)plane[t.c];
+  const float Id = (float)plane[t.d];
 
   float v = __fmul_rn(wa, Ia);
   v = __fadd_rn(v, __fmul_rn(wb, Ib));
   v = __fadd_rn(v, __fmul_rn(wc, Ic));
   v = __fadd_rn(v, __fmul_rn(wd, Id));
   return v;
-}
-
-// NDC -> pixel: (ndc + 1) * (size / 2), two roundings as in the plain version.
-__device__ __forceinline__ float ndc_to_pixel(float ndc, int size) {
-  return __fmul_rn(__fadd_rn(ndc, 1.0f), 0.5f * (float)size);
 }
 
 // K2: im (B, H, W, C) f32, maps (B, Ho, Wo) f32 NDC -> out (B, Ho, Wo, C).
@@ -173,12 +152,6 @@ __global__ void warp_uint8_lowres_kernel(const uint8_t* __restrict__ imc,
     v = fminf(fmaxf(rintf(v), 0.0f), 255.0f);  // round half to even, clip
     out[i * C + c] = (uint8_t)v;
   }
-}
-
-constexpr int kThreads = 256;
-
-inline unsigned int blocks_for(long long total) {
-  return (unsigned int)((total + kThreads - 1) / kThreads);
 }
 
 }  // namespace

@@ -6,11 +6,13 @@ from stabnet_tpu_torch.models.resnet import (
     ResNetV2,
     StabNetRegressor,
     ThetaHead,
+    cast_weights,
     init_weights,
 )
 from stabnet_tpu_torch.models.stabnet import (
     StabNetOutput,
     forward,
+    forward_train,
     make_model,
     scale_theta_head,
 )

@@ -12,7 +12,8 @@ renamed:
   batch_stats/.../var             -> .../running_var
 
 A checkpoint travels as an .npz whose keys are the Flax paths joined by "/"
-("params/resnet_v2_50/conv1/conv/kernel", ...).
+("params/resnet_v2_50/conv1/conv/kernel", ...).  Every tensor converts to
+fp32, the dtype of all the port's parameters and statistics.
 """
 
 from __future__ import annotations

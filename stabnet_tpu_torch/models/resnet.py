@@ -20,9 +20,17 @@ converted checkpoint (`models/convert.py`) loads by name:
 
 Public inputs are NHWC stacks as in the JAX package; inside, the trunk runs
 NCHW (a permuted NHWC tensor is channels-last memory, which cuDNN prefers).
-Conv and dense weights are held in the compute dtype (the JAX package casts
-its fp32 parameters to it at every use: the same values); BN statistics and
-the final `head.out` layer stay fp32.
+Every parameter is held in fp32 and conv and dense weights are cast to the
+compute dtype at each use, as Flax does (`param_dtype=float32`): Adam's steps
+at the reference learning rate are far below bf16's resolution.  BN
+statistics and the final `head.out` layer stay fp32.  A serving engine casts
+the conv and dense weights once instead (`cast_weights`), which gives the
+same values and saves the cast at every frame.
+
+Training mode (`model.train()`) gives BatchNorm Flax's training branch:
+normalize with the biased batch variance, statistics reduced in fp32, and
+running statistics updated as ra <- 0.997 ra + 0.003 batch, with the biased
+variance too.
 """
 
 from __future__ import annotations
@@ -35,10 +43,11 @@ import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.997          # Flax's convention: ra <- momentum * ra + ...
 
 
 class BatchNorm(nn.Module):
-    """Inference batch norm over channel dim 1 with fp32 statistics."""
+    """Batch norm over channel dim 1 with fp32 statistics and parameters."""
 
     def __init__(self, features: int):
         super().__init__()
@@ -48,8 +57,22 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x):
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, False, 0.0, BN_EPS)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, BN_EPS)
+        # torch normalizes with the biased batch variance, as Flax does, but
+        # moves running_var towards the UNBIASED one: rv' = (1-m) rv + m v n/(n-1).
+        # Flax wants (1-m) rv + m v = rv' (n-1)/n + (1-m) rv / n, exactly.
+        # torch's backward reads the statistics it was given, so it gets
+        # copies and the buffers are written afterwards.
+        n = x.numel() // x.shape[1]
+        m = 1.0 - BN_MOMENTUM
+        mean, var = self.running_mean.clone(), self.running_var.clone()
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, m, BN_EPS)
+        with torch.no_grad():
+            self.running_mean.copy_(mean)
+            self.running_var.mul_((1.0 - m) / n).add_(var * ((n - 1) / n))
+        return y
 
 
 class Conv(nn.Module):
@@ -63,13 +86,14 @@ class Conv(nn.Module):
             raise ValueError(f"odd kernel sizes only, got {kernel}")
         self.stride = stride
         self.pad = (kernel - 1) // 2
-        self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel,
-                                               dtype=dtype))
-        self.bias = (nn.Parameter(torch.zeros(cout, dtype=dtype))
-                     if bias else None)
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
     def forward(self, x):
-        return F.conv2d(x, self.weight, self.bias, self.stride, self.pad)
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        return F.conv2d(x, self.weight.to(self.dtype), bias, self.stride,
+                        self.pad)
 
 
 class SlimConv(nn.Module):
@@ -159,15 +183,16 @@ class ResNetV2(nn.Module):
 
 
 class Dense(nn.Module):
-    """Flax `nn.Dense` layout: y = x @ W^T + b, weights in `dtype`."""
+    """Flax `nn.Dense` layout: y = x @ W^T + b, computed in `dtype`."""
 
     def __init__(self, fin: int, fout: int, dtype=torch.bfloat16):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(fout, fin, dtype=dtype))
-        self.bias = nn.Parameter(torch.zeros(fout, dtype=dtype))
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(fout, fin))
+        self.bias = nn.Parameter(torch.zeros(fout))
 
     def forward(self, x):
-        return F.linear(x, self.weight, self.bias)
+        return F.linear(x, self.weight.to(self.dtype), self.bias.to(self.dtype))
 
 
 class ThetaHead(nn.Module):
@@ -235,4 +260,18 @@ def init_weights(model: nn.Module,
                 w.copy_(tmp)
                 if mod.bias is not None:
                     mod.bias.zero_()
+    return model
+
+
+def cast_weights(model: nn.Module) -> nn.Module:
+    """Store every conv and dense weight and bias in its layer's compute
+    dtype, in place, so that the cast at each use costs nothing: the values
+    are those the fp32 parameters give at use.  For serving; a model cast so
+    is not to be trained."""
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, (Conv, Dense)):
+                for p in (mod.weight, mod.bias):
+                    if p is not None:
+                        p.data = p.data.to(mod.dtype)
     return model

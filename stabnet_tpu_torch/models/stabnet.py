@@ -1,7 +1,8 @@
-"""StabNet model: input stack -> theta -> mesh -> warped frame (inference).
+"""StabNet model: input stack -> theta -> mesh -> warped frame.
 
 Functional equivalent of the reference `inference_stable_net` forward path
 (s_net_bundle_nobm.py:266-307); the JAX package's models/stabnet.py.
+`forward` serves (inference mode); `forward_train` carries gradients.
 """
 
 from __future__ import annotations
@@ -12,8 +13,10 @@ import torch
 
 from stabnet_tpu_torch.config import StabNetConfig
 from stabnet_tpu_torch.models.resnet import StabNetRegressor, init_weights
+from stabnet_tpu_torch.ops import cuda_warp
+from stabnet_tpu_torch.ops.homography import mesh_to_homographies
 from stabnet_tpu_torch.ops.mesh import cell_pts, theta_to_mesh
-from stabnet_tpu_torch.ops.warp import WarpResult, transformer
+from stabnet_tpu_torch.ops.warp import WarpResult, black_mask, dense_maps, transformer
 
 
 class StabNetOutput(NamedTuple):
@@ -53,6 +56,28 @@ def forward(model: StabNetRegressor, x: torch.Tensor,
     mesh = theta_to_mesh(theta, cfg.grid_h, cfg.grid_w, cfg.do_crop_rate)
     cur = current_frame(x, cfg).to(getattr(torch, cfg.warp_dtype))
     warp = transformer(cur, mesh, cfg.grid_h, cfg.grid_w)
+    return StabNetOutput(theta=theta, mesh=mesh, pts1=cell_pts(mesh), warp=warp)
+
+
+def forward_train(model: StabNetRegressor, x: torch.Tensor,
+                  cfg: StabNetConfig) -> StabNetOutput:
+    """Run the regressor and warp the current frame, with gradients.
+
+    The JAX package's `forward(..., train=True, pallas_warp=...)`
+    (stabnet_tpu/models/stabnet.py:41-87).  BatchNorm follows the model's
+    mode: in `model.train()` it normalizes with batch statistics and updates
+    its running statistics in place.  The current frame is data, so the
+    warp needs map gradients only: `bilinear_sample_const_image` (K2
+    forward, K6b backward on CUDA; the plain sampler under autograd on CPU).
+    """
+    theta = model(x)
+    mesh = theta_to_mesh(theta, cfg.grid_h, cfg.grid_w, cfg.do_crop_rate)
+    cur = current_frame(x, cfg).to(getattr(torch, cfg.warp_dtype))
+    Hs = mesh_to_homographies(mesh, cfg.grid_h, cfg.grid_w)
+    x_map, y_map = dense_maps(Hs, cfg.height, cfg.width)
+    warp = WarpResult(
+        output=cuda_warp.bilinear_sample_const_image(cur, x_map, y_map),
+        black_pix=black_mask(x_map, y_map), x_map=x_map, y_map=y_map, Hs=Hs)
     return StabNetOutput(theta=theta, mesh=mesh, pts1=cell_pts(mesh), warp=warp)
 
 

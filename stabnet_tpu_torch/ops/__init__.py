@@ -1,4 +1,4 @@
-"""Geometry and warp ops of the serving path (PyTorch port of stabnet_tpu.ops)."""
+"""Geometry and warp ops (PyTorch port of stabnet_tpu.ops)."""
 
 from stabnet_tpu_torch.ops.crop import max_clear_rect
 from stabnet_tpu_torch.ops.homography import (

@@ -1,4 +1,5 @@
-"""Half-pixel bilinear resize of (..., H, W) maps.
+"""Half-pixel bilinear resize of (..., H, W) maps, and the fused
+resize-and-crop of the training augmentation.
 
 The weights are the JAX package's static resize matrices, built in numpy the
 same way (`resize_matrix`).  Each row of such a matrix has at most two
@@ -66,3 +67,35 @@ def resize_bilinear_bhw(m: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tenso
     rows = w_lo[:, None] * m[..., lo, :] + w_hi[:, None] * m[..., hi, :]
     lo, hi, w_lo, w_hi = device_taps(W, Wo, m.device)
     return w_lo * rows[..., lo] + w_hi * rows[..., hi]
+
+
+def resize_bilinear_hwc(img: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """(..., H, W, C) -> (..., Ho, Wo, C)."""
+    return resize_bilinear_bhw(img.movedim(-1, -3), out_hw).movedim(-3, -1)
+
+
+def _dyn_axis_matrix(n_out: int, n_in: int, big_n: int,
+                     offset: torch.Tensor) -> torch.Tensor:
+    """(..., n_out, n_in) interpolation matrices for a fused up-sample to
+    `big_n` and crop at `offset` (a tensor of any batch shape): row o
+    samples the source at (o + offset + 0.5) * (n_in / big_n) - 0.5, the
+    value a half-pixel bilinear resize to `big_n` holds at o + offset."""
+    dev = offset.device
+    o = torch.arange(n_out, dtype=torch.float32, device=dev)[:, None]
+    i = torch.arange(n_in, dtype=torch.float32, device=dev)[None, :]
+    off = offset.float()[..., None, None]
+    src = ((o + off + 0.5) * (n_in / big_n) - 0.5).clamp(0.0, n_in - 1)
+    return (1.0 - (src - i).abs()).clamp_min(0.0)
+
+
+def resize_crop_hwc(img: torch.Tensor, big_hw: Tuple[int, int],
+                    crop_h: torch.Tensor, crop_w: torch.Tensor,
+                    out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Resize (..., H, W, C) to `big_hw`, then crop `out_hw` at
+    (crop_h, crop_w) (tensors of the batch shape `...`), as two matrix
+    products; the big intermediate is never built."""
+    H, W = img.shape[-3], img.shape[-2]
+    Rr = _dyn_axis_matrix(out_hw[0], H, big_hw[0], crop_h)        # (..., Ho, H)
+    Rc = _dyn_axis_matrix(out_hw[1], W, big_hw[1], crop_w)        # (..., Wo, W)
+    out = torch.einsum("...oh,...hwc->...owc", Rr, img.float())
+    return torch.einsum("...pw,...owc->...opc", Rc, out)

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from stabnet_tpu_torch.config import StabNetConfig
+from stabnet_tpu_torch.models.resnet import cast_weights
 from stabnet_tpu_torch.models.stabnet import forward
 from stabnet_tpu_torch.ops import cuda_warp
 from stabnet_tpu_torch.ops.crop import max_clear_rect
@@ -231,13 +232,15 @@ class StreamEngine:
 
     `device` defaults to CUDA and raises if CUDA is missing; pass
     device="cpu" to run the plain versions on the CPU.  The model is moved
-    to the device and put in eval mode.
+    to the device, put in eval mode, and its conv and dense weights are cast
+    to the compute dtype in place (`cast_weights`: the values the fp32
+    parameters give at each use, without a cast per frame).
     """
 
     def __init__(self, model, cfg: StabNetConfig, refine: int = 1,
                  out_hw: Optional[Tuple[int, int]] = None, device=None):
         self.device = resolve_device(device)
-        self.model = model.to(self.device).eval()
+        self.model = cast_weights(model.to(self.device).eval())
         self.cfg = cfg
         self.refine = refine
         self.out_hw = out_hw

@@ -1,0 +1,14 @@
+"""Training (PyTorch port of stabnet_tpu.train)."""
+
+from stabnet_tpu_torch.train.state import (
+    Adam,
+    TrainState,
+    create_train_state,
+    learning_rate,
+)
+from stabnet_tpu_torch.train.train import (
+    compute_losses,
+    eval_step,
+    loss_gates,
+    train_step,
+)

@@ -1,5 +1,7 @@
 """Per-stage wall-clock timing (the reference prints deploy fps every 10
-frames, deploy_bundle.py:285-287,316-318; here the same signal is a summary).
+frames and the data-read vs. train time every 100 iterations,
+deploy_bundle.py:285-287,316-318, train_bundle_nobm.py:237-242; here the
+same signals are a summary).
 """
 
 from __future__ import annotations
@@ -18,7 +20,9 @@ class StageTimer:
     The streaming driver's per-frame latency decomposition
     ("pre"/"dispatch"/"readback", StreamDriver.stabilize_clip, and "net",
     which spans dispatch and readback of one frame).  On CUDA, "dispatch"
-    measures the enqueue and "readback" the wait for the device.
+    measures the enqueue and "readback" the wait for the device.  The train
+    loop's "data" (waiting for the next batch) and "step" (enqueueing a
+    step, and waiting for the device when the loop reads the losses).
     """
 
     def __init__(self) -> None:
@@ -44,3 +48,6 @@ class StageTimer:
                 "p95_ms": float(np.percentile(a, 95) * 1e3),
             }
         return out
+
+    def reset(self) -> None:
+        self.samples.clear()

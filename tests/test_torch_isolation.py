@@ -18,7 +18,7 @@ names = [m.name for m in pkgutil.walk_packages(stabnet_tpu_torch.__path__,
                                                "stabnet_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 15, names
+assert len(names) >= 33, names
 bad = sorted(m for m in sys.modules
              if m in ("jax", "flax", "orbax", "stabnet_tpu")
              or m.startswith(("jax.", "flax.", "orbax.", "stabnet_tpu.")))

@@ -1,11 +1,13 @@
-"""The port's warp kernels K1 and K2 (stabnet_tpu_torch/ops/cuda_warp.py).
+"""The port's warp kernels (stabnet_tpu_torch/ops/cuda_warp.py).
 
 On the CPU the wrappers run their plain versions; those are held here to the
 JAX package's Pallas kernels in interpret mode (exact=True), as
-tests/test_pallas_warp.py runs them.  Tolerances: K2 1e-5 absolute (f32
-sampler, matrix-unit formulation vs gather); K1 1 uint8 LSB (rounding of
-coordinates that differ in the last bits: the Pallas kernel converts NDC to
-pixels before the map up-sample, the port after it).
+tests/test_pallas_warp.py runs them, and to the XLA sampler's autodiff.
+Tolerances: K2 1e-5 absolute (f32 sampler, matrix-unit formulation vs
+gather); K1 1 uint8 LSB (rounding of coordinates that differ in the last
+bits: the Pallas kernel converts NDC to pixels before the map up-sample, the
+port after it); K4 and K5 2e-6 absolute (the same sums in another order);
+K6 1e-4 (derivatives of magnitude ~50, as tests/test_pallas_warp.py:233).
 
 The `cuda` tests hold each kernel to its plain version on a card; they skip
 without one.  On a machine with a card and no JAX:
@@ -122,9 +124,168 @@ def test_cpu_tensors_never_count_a_launch():
     cuda_warp.bilinear_sample(im, x, x)
     cuda_warp.warp_uint8_cf_lowres(imc, x[:, :2, :4].contiguous(),
                                    x[:, :2, :4].contiguous(), (8, 16))
+    cuda_warp.bilinear_splat(im, x, x, (6, 10))
+    cuda_warp.sample_map_grad(im, x, x, im)
     assert [k.launches for k in cuda_warp.KERNELS] == before
     with pytest.raises(ValueError):        # mixed devices are refused
         cuda_warp.bilinear_sample(im.to("meta"), x, x)
+
+
+def _grad_inputs(device="meta"):
+    im = torch.zeros((1, 8, 16, 1), device=device)
+    x = torch.zeros((1, 8, 16), device=device)
+    imc = torch.zeros((1, 3, 8, 16), dtype=torch.uint8, device=device)
+    return im, x, imc
+
+
+KERNEL_CALLS = {
+    "bilinear_sample": lambda im, x, imc: cuda_warp.bilinear_sample(im, x, x),
+    "warp_uint8_cf_lowres": lambda im, x, imc: cuda_warp.warp_uint8_cf_lowres(
+        imc, x, x, (8, 16)),
+    "bilinear_splat": lambda im, x, imc: cuda_warp.bilinear_splat(im, x, x, (8, 16)),
+    "sample_map_grad": lambda im, x, imc: cuda_warp.sample_map_grad(im, x, x, im),
+}
+
+
+@pytest.mark.parametrize("device", ["meta", "cpu"])
+@pytest.mark.parametrize("name", sorted(KERNEL_CALLS))
+def test_kernels_refuse_inputs_that_require_grad(name, device):
+    """No wrapper cuts the autograd graph silently: under grad mode an input
+    that requires grad is refused, before any device is touched (the meta
+    device stands in for a card), and on the CPU alike."""
+    im, x, imc = _grad_inputs(device)
+    with pytest.raises(RuntimeError, match="carries no gradient"):
+        KERNEL_CALLS[name](im.requires_grad_(), x.requires_grad_(), imc)
+    with torch.no_grad():                  # no graph: the check lets it pass
+        if device == "meta":
+            with pytest.raises(ValueError, match="unsupported device"):
+                KERNEL_CALLS[name](im, x, imc)
+        else:
+            KERNEL_CALLS[name](im, x, imc)
+
+
+def _splat_case():
+    """tests/test_pallas_warp.py:239-258: maps past +/-1, output smaller
+    than the image and not a tile multiple."""
+    rng = np.random.RandomState(0)
+    B, H, W, C = 2, 48, 64, 2
+    Ho, Wo = 40, 56
+    ys, xs = np.mgrid[0:Ho, 0:Wo].astype(np.float32)
+    xm = np.stack([(2 * (xs + rng.randn() * 2) / W - 1) * 1.06
+                   for _ in range(B)]).astype(np.float32)
+    ym = np.stack([(2 * (ys + rng.randn() * 2) / H - 1) * 1.06
+                   for _ in range(B)]).astype(np.float32)
+    g = rng.rand(B, Ho, Wo, C).astype(np.float32)
+    return g, xm, ym, (H, W)
+
+
+def test_k4_plain_matches_pallas_and_xla_adjoint():
+    jnp, pallas_warp = _jax()
+    import jax
+
+    from stabnet_tpu.ops import warp
+
+    g, xm, ym, (H, W) = _splat_case()
+    im = jnp.zeros((g.shape[0], H, W, g.shape[-1]), jnp.float32)
+    _, vjp = jax.vjp(lambda im_: warp.bilinear_sample(im_, jnp.asarray(xm),
+                                                      jnp.asarray(ym)), im)
+    xla = np.asarray(vjp(jnp.asarray(g))[0])
+    pallas = np.asarray(pallas_warp.bilinear_splat_pallas(
+        jnp.asarray(g), jnp.asarray(xm), jnp.asarray(ym), (H, W), interpret=True))
+    got = cuda_warp.bilinear_splat(torch.from_numpy(g), torch.from_numpy(xm),
+                                   torch.from_numpy(ym), (H, W)).numpy()
+    assert got.shape == xla.shape
+    np.testing.assert_allclose(got, xla, rtol=0, atol=2e-6)
+    np.testing.assert_allclose(got, pallas, rtol=0, atol=2e-6)
+
+
+def test_k4_plain_sums_exactly():
+    """The fixed-point sums are exact: a sample far outside the frame puts
+    large weights of opposite sign on one clamped tap, and they cancel to
+    exactly 0; a non-finite cotangent poisons the whole result."""
+    g = torch.ones((1, 1, 2, 1))
+    x = torch.tensor([[[-3.0, 0.0]]])      # -3: 512 px left of a 256-px frame
+    y = torch.zeros((1, 1, 2))
+    out = cuda_warp.bilinear_splat_plain(g, x, y, (4, 256))
+    assert float(out[0, :, 0].abs().sum()) == 0.0      # the far sample cancels
+    assert float(out.sum()) == 1.0                     # the centre one does not
+    g[0, 0, 1, 0] = float("inf")
+    assert bool(cuda_warp.bilinear_splat_plain(g, x, y, (4, 256)).isnan().all())
+
+
+def _map_grad_case():
+    """tests/test_pallas_warp.py:209-236."""
+    rng = np.random.RandomState(3)
+    B, H, W, C = 1, 8, 128, 1
+    im = rng.rand(B, H, W, C).astype(np.float32)
+    gx = np.linspace(-1, 1, W, dtype=np.float32)
+    gy = np.linspace(-1, 1, H, dtype=np.float32)
+    xg, yg = np.meshgrid(gx, gy)
+    xm = (xg * 0.9 + 0.03)[None].astype(np.float32)
+    ym = (yg * 0.9 - 0.02)[None].astype(np.float32)
+    g = rng.rand(B, H, W, C).astype(np.float32)
+    return im, xm, ym, g
+
+
+def test_k6_map_gradients_match_pallas_and_xla():
+    jnp, pallas_warp = _jax()
+    import jax
+
+    from stabnet_tpu.ops import warp
+
+    im, xm, ym, g = _map_grad_case()
+
+    def loss(sampler):
+        return lambda x, y: jnp.sum(sampler(jnp.asarray(im), x, y) * jnp.asarray(g))
+
+    args = (jnp.asarray(xm), jnp.asarray(ym))
+    want_xla = jax.grad(loss(warp.bilinear_sample), argnums=(0, 1))(*args)
+    want_pallas = jax.grad(loss(pallas_warp.bilinear_sample_pallas_const_image),
+                           argnums=(0, 1))(*args)
+    t = [torch.from_numpy(a) for a in (im, xm, ym, g)]
+    kernel = cuda_warp.sample_map_grad(*t)
+    xr, yr = t[1].clone().requires_grad_(), t[2].clone().requires_grad_()
+    (cuda_warp.bilinear_sample_const_image(t[0], xr, yr) * t[3]).sum().backward()
+    for got in (kernel, (xr.grad, yr.grad)):
+        for a, b, c in zip(got, want_xla, want_pallas):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4, atol=1e-4)
+            np.testing.assert_allclose(a.numpy(), np.asarray(c), rtol=1e-4, atol=1e-4)
+    # K6b's plain version is the autograd of the plain sampler, summed in
+    # another order: within f32 rounding of the largest derivative.
+    scale = float(kernel[0].abs().max())
+    assert scale > 10
+    for a, b in zip(kernel, (xr.grad, yr.grad)):
+        assert float((a - b).abs().max()) <= 1e-6 * scale
+
+
+def test_k5_image_gradients_match_pallas_and_xla():
+    """tests/test_pallas_warp.py:261-276: the temporal-loss configuration."""
+    jnp, pallas_warp = _jax()
+    import jax
+
+    from stabnet_tpu.ops import warp
+
+    rng = np.random.RandomState(1)
+    B, H, W, C = 2, 48, 64, 1
+    im = rng.rand(B, H, W, C).astype(np.float32)
+    ys, xs = np.mgrid[0:H, 0:W].astype(np.float32)
+    xm = (2 * (xs + 1.3) / W - 1)[None].repeat(B, 0)
+    ym = (2 * (ys - 0.7) / H - 1)[None].repeat(B, 0)
+    want = {name: np.asarray(jax.grad(lambda im_: jnp.sum(jnp.sin(
+        fn(im_, jnp.asarray(xm), jnp.asarray(ym)))))(jnp.asarray(im)))
+        for name, fn in (("xla", warp.bilinear_sample),
+                         ("pallas", pallas_warp.bilinear_sample_pallas_const_maps))}
+    imt = torch.from_numpy(im).requires_grad_()
+    torch.sin(cuda_warp.bilinear_sample_const_maps(
+        imt, torch.from_numpy(xm), torch.from_numpy(ym))).sum().backward()
+    for ref in want.values():
+        np.testing.assert_allclose(imt.grad.numpy(), ref, rtol=0, atol=2e-6)
+    # The splat of the same cotangent gives the same image gradient.
+    with torch.no_grad():
+        g = torch.cos(cuda_warp.bilinear_sample_plain(imt, torch.from_numpy(xm),
+                                                      torch.from_numpy(ym)))
+    splat = cuda_warp.bilinear_splat(g, torch.from_numpy(xm), torch.from_numpy(ym), (H, W))
+    np.testing.assert_allclose(splat.numpy(), want["xla"], rtol=0, atol=2e-6)
 
 
 @pytest.mark.cuda
@@ -151,3 +312,12 @@ def test_kernels_match_plain_on_the_card():
     assert int((got.int() - want.int()).abs().max()) <= 1
     with pytest.raises(ValueError):        # the wrapper refuses what K1 does not take
         cuda_warp.warp_uint8_cf_lowres(imc.float(), xs, ys, (181, 243))
+    g = torch.rand((2, 72, 136, 2), generator=gen).to(dev)
+    before = cuda_warp.bilinear_splat.launches
+    got = cuda_warp.bilinear_splat(g, x, y, (61, 97))
+    assert cuda_warp.bilinear_splat.launches == before + 1
+    assert torch.equal(got, cuda_warp.bilinear_splat_plain(g, x, y, (61, 97)))
+    assert torch.equal(got, cuda_warp.bilinear_splat(g, x, y, (61, 97)))  # deterministic
+    got = cuda_warp.sample_map_grad(im, x, y, g[..., :1].contiguous())
+    want = cuda_warp.sample_map_grad_plain(im, x, y, g[..., :1].contiguous())
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
