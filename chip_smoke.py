@@ -10,22 +10,29 @@ nonzero exit):
      build from stabnet_tpu_torch/csrc (one nvcc per source, in parallel);
   2. K2 (f32 sampler) against its plain PyTorch version on the card, on
      realistic and adversarial maps, both strict_edge modes;
-  3. K1 (uint8 color warp, fused map up-sample) against its plain version at
-     720p, 1080p and a ragged size;
+  3. K1 (uint8 color warp, fused map up-sample) and K3 (the same warp at
+     full-resolution maps) against their plain versions, bit for bit, at
+     720p S=1 and S=4, 1080p, 719x1283 and zoomed maps, and at 360x640
+     from maps too wide for K1 to stage their row pass;
   4. the serving path at v2_93 (bf16, seeded random weights, theta head
      scaled by 0.05) on a 40-frame synthetic 720p clip: StreamDriver at S=1
      and StreamEngine.stabilize_clip at S=4, with the kernels' launch counts
      read around each run;
   5. card against CPU in f32 (TF32 off), 8 frames;
-  6. serving times: CUDA events, 5 warm-ups, median of 50 runs;
+  6. serving times: CUDA events, 5 warm-ups, median of 50 runs; K1 and K3
+     at 720p S=1 and S=4 and at 1080p (K3 is on no path, as in the JAX
+     package);
   7. K4 (splat) and K6b (map gradient) against their plain versions on the
-     card, realistic and adversarial maps, and K5/K6 through autograd;
+     card, realistic and adversarial maps, K4 also on flow-like maps (every
+     pass-2 tile sums in shared memory) and half of each; K5/K6 through
+     autograd;
   8. the training path: `make-synthetic` 20 v2_93 examples, then `train`
      through the port's CLI at v2_93 bf16 batch 10 for 4 steps with every
      loss term live, then `--restore` to step 6, launch counts read around
      each segment;
   9. one v2_93 training step, card against CPU, f32 (TF32 off), batch 2;
- 10. training times: K4 and K6b at their training shapes, and the step.
+ 10. training times: K4 (with each pass's time under torch.profiler) and
+     K6b at their training shapes, and the step.
 The line before the last is a JSON object with every kernel's numbers; the
 last line is {"ok": true, "device": {...}}.  Needs CUDA and the repository
 beside it; imports nothing of JAX.
@@ -219,6 +226,8 @@ def profile_path(engine, clip: np.ndarray, frames: int = 20):
 # --- phases -----------------------------------------------------------------
 
 SOURCES = ("warp", "warp_grad")
+KERNEL_NAMES = ("warp_uint8_kernel", "bilinear_sample_kernel", "splat_max_kernel",
+                "splat_scatter_kernel", "splat_convert_kernel", "sample_map_grad_kernel")
 
 
 def phase_device():
@@ -237,7 +246,40 @@ def phase_device():
     print(f"[1 device] {card} | torch {torch.__version__} cuda {torch.version.cuda}"
           f" | csrc/{{{','.join(SOURCES)}}}.cu built in parallel and loaded in "
           f"{build_s:.2f} s | {'; '.join(regs)}")
+    print(f"[1 sass] instructions per kernel (cuobjdump -sass): {sass_sizes(SOURCES)}")
     return card
+
+
+def sass_sizes(sources):
+    """{kernel: SASS instruction count} of the built libraries, by
+    `cuobjdump -sass` beside nvcc; "not available" without it."""
+    from stabnet_tpu_torch.ops import cuda_build
+
+    tool = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
+    if not os.access(tool, os.X_OK):
+        return "not available"
+    sizes = {}
+    for name in sources:
+        sizes.update(sass_counts(subprocess.run(
+            [tool, "-sass", cuda_build.library_path(name)],
+            capture_output=True, text=True).stdout))
+    return sizes
+
+
+def sass_counts(sass: str) -> dict:
+    """{kernel<template arguments>: instructions} of `cuobjdump -sass` text."""
+    import re
+
+    sizes = {}
+    for func in sass.split("Function : ")[1:]:
+        head = func.split("\n")[0]
+        kernel = next((k for k in KERNEL_NAMES if k in head), head[:40])
+        targs = re.search(re.escape(kernel) + r"I((?:L[ib]\d+E)+)E", head)
+        if targs:   # template arguments, e.g. <3,1> for C = 3, low-res maps
+            kernel += "<" + ",".join(re.findall(r"L[ib](\d+)E", targs.group(1))) + ">"
+        sizes[kernel] = sum(1 for ln in func.splitlines()
+                            if re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+[@A-Z]", ln))
+    return sizes
 
 
 def phase_k2(gen: torch.Generator, dev) -> float:
@@ -269,27 +311,43 @@ def phase_k2(gen: torch.Generator, dev) -> float:
     return worst
 
 
-def phase_k1(gen: torch.Generator, dev) -> int:
+def phase_k1(gen: torch.Generator, dev):
+    """K1 and K3 against their plain versions, bit for bit: K1 on low-res
+    maps, K3 on the same maps up-sampled to the frame (the coordinates K1
+    computes in registers)."""
     from stabnet_tpu_torch.ops import cuda_warp, resize_bilinear_bhw
 
-    worst = 0
-    cases = [(1, (720, 1280), 1.0), (4, (720, 1280), 1.0), (1, (1080, 1920), 1.0),
-             (1, (719, 1283), 1.0), (2, (720, 1280), 1.15)]
-    for S, (Hf, Wf), zoom in cases:
+    worst = {"warp_uint8_cf_lowres": 0, "warp_uint8_cf": 0}
+    # (S, frame, zoom, low-res maps): the path's 72 x 128 maps, whose row
+    # pass K1 stages in shared memory, and once the model-scale 288 x 512
+    # maps, too wide for that at 360 x 640.
+    cases = [(1, (720, 1280), 1.0, (72, 128)), (4, (720, 1280), 1.0, (72, 128)),
+             (1, (1080, 1920), 1.0, (72, 128)), (1, (719, 1283), 1.0, (72, 128)),
+             (2, (720, 1280), 1.15, (72, 128)), (1, (360, 640), 1.0, (288, 512))]
+    for S, (Hf, Wf), zoom, lowres in cases:
         imc = torch.randint(0, 256, (S, 3, Hf, Wf), generator=gen,
                             dtype=torch.uint8).to(dev)
         xm, ym = realistic_maps(S, 288, 512, gen, dev, zoom=zoom)
-        xs = resize_bilinear_bhw(xm, (72, 128)).contiguous()
-        ys = resize_bilinear_bhw(ym, (72, 128)).contiguous()
-        got = cuda_warp.warp_uint8_cf_lowres(imc, xs, ys, (Hf, Wf))
-        want = cuda_warp.warp_uint8_cf_lowres_plain(imc, xs, ys, (Hf, Wf))
+        xs = resize_bilinear_bhw(xm, lowres).contiguous()
+        ys = resize_bilinear_bhw(ym, lowres).contiguous()
+        xf = resize_bilinear_bhw(xs, (Hf, Wf)).contiguous()
+        yf = resize_bilinear_bhw(ys, (Hf, Wf)).contiguous()
+        pairs = {
+            "warp_uint8_cf_lowres": (cuda_warp.warp_uint8_cf_lowres(imc, xs, ys, (Hf, Wf)),
+                                     cuda_warp.warp_uint8_cf_lowres_plain(imc, xs, ys, (Hf, Wf))),
+            "warp_uint8_cf": (cuda_warp.warp_uint8_cf(imc, xf, yf),
+                              cuda_warp.warp_uint8_cf_plain(imc, xf, yf)),
+        }
         torch.cuda.synchronize()
-        err = int((got.int() - want.int()).abs().max())
-        worst = max(worst, err)
-        check(got.shape == (S, Hf, Wf, 3), f"K1 shape {tuple(got.shape)}")
-        check(err <= 1, f"K1 S={S} {Hf}x{Wf} zoom={zoom}: max abs {err} LSB")
-    print(f"[3 K1] warp_uint8_cf_lowres vs plain on the card: max abs {worst} "
-          f"LSB (tolerance 1) at 720p S=1/4, 1080p, 719x1283, zoomed maps")
+        for name, (got, want) in pairs.items():
+            err = int((got.int() - want.int()).abs().max())
+            worst[name] = max(worst[name], err)
+            check(got.shape == (S, Hf, Wf, 3), f"{name} shape {tuple(got.shape)}")
+            check(err == 0, f"{name} S={S} {Hf}x{Wf} zoom={zoom}: max abs {err} LSB")
+    print(f"[3 K1/K3] warp_uint8_cf_lowres vs plain on the card: max abs "
+          f"{worst['warp_uint8_cf_lowres']} LSB, warp_uint8_cf vs plain: max abs "
+          f"{worst['warp_uint8_cf']} LSB (tolerance 0 for both) at 720p S=1/4, 1080p, "
+          f"719x1283, zoomed maps, and 360x640 from 288x512 maps")
     return worst
 
 
@@ -338,7 +396,7 @@ def phase_path(clips: np.ndarray, dev):
     driver = StreamDriver(engine, DeployOptions(refine=refine, device_gray=True))
 
     expected = {"bilinear_sample": refine * (T - 1), "warp_uint8_cf_lowres": T - 1,
-                "bilinear_splat": 0, "sample_map_grad": 0}
+                "warp_uint8_cf": 0, "bilinear_splat": 0, "sample_map_grad": 0}
     cuda_warp.reset_launch_counts()
     res = driver.stabilize_clip(clips[0])
     torch.cuda.synchronize()
@@ -414,52 +472,67 @@ def phase_times(card: str, gen: torch.Generator, dev, engine, driver, clips,
 
     bw, f32_peak = peaks(torch.cuda.get_device_name(0))
     H, W = 288, 512
-    Hf, Wf = CLIP_HW
     timed = {}
+
+    def record(name, label, kern, plain, lib, nbytes, ops, plain_reps=50):
+        t = {"ms": device_ms(kern), "plain_ms": device_ms(plain, calls=5, reps=plain_reps),
+             "library_ms": device_ms(lib) if lib else None, "call_ms": call_ms(kern)}
+        t_bytes, t_ops = nbytes / bw * 1e3, ops / f32_peak * 1e3
+        t["bound_ms"] = max(t_bytes, t_ops)
+        t["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        timed[(name, label)] = t
+        lib_txt = "none" if lib is None else f"{t['library_ms']:.5f} ms"
+        print(f"[6 times {name} {label}] {card} | kernel {t['ms']:.5f} ms device "
+              f"({t['call_ms']:.5f} ms per call from the host), plain "
+              f"{t['plain_ms']:.5f} ms, library {lib_txt}, bound "
+              f"{t['bound_ms'] * 1e3:.3f} us ({nbytes} B, {t['bound_by']})")
+
+    # Bytes: each input read once, each output written once.  f32 operations
+    # per output pixel, counted in csrc/warp.cu: the coordinates take 24
+    # (ndc_to_pixel 2 x 2, floor 2, corner + 1 2, clamps 8, distances 4,
+    # weights 4) and each channel's taps 7 (4 mul, 3 add); K1 adds the map
+    # up-sample, 2 x 9 (upsample_tap: 6 mul, 3 add), and 3 per channel
+    # (round, clip).  K2 here has C = 1, K1 and K3 have C = 3.
     for S in (1, 4):
         im = (torch.rand((S, H, W, 1), generator=gen) - 0.5).to(dev)
         xm, ym = realistic_maps(S, H, W, gen, dev)
         grid = torch.stack([xm + 1.0 / W, ym + 1.0 / H], dim=-1)
         im_nchw = im.permute(0, 3, 1, 2)
-        imc = torch.from_numpy(clips[:S, 1]).permute(0, 3, 1, 2).contiguous().to(dev)
+        record("bilinear_sample", f"S={S}",
+               lambda: cuda_warp.bilinear_sample(im, xm, ym),
+               lambda: cuda_warp.bilinear_sample_plain(im, xm, ym),
+               lambda: F.grid_sample(im_nchw, grid, mode="bilinear",
+                                     padding_mode="zeros", align_corners=False),
+               4 * (3 * xm.numel() + im.numel()), (24 + 7) * xm.numel())
+    # The color warps at the serving shapes (the clip's frames at 720p, a
+    # random frame at 1080p): K1 from the model-scale maps' 4x-down
+    # resize, K3 from those maps up-sampled to the frame.
+    # The plain versions repeat the kernels' arithmetic and are no yardstick
+    # of speed: away from the main shape, 10 replays of 5 calls time them.
+    for label, S, (Hf, Wf), plain_reps in (("S=1 720p", 1, CLIP_HW, 50),
+                                           ("S=4 720p", 4, CLIP_HW, 10),
+                                           ("S=1 1080p", 1, (1080, 1920), 10)):
+        if (Hf, Wf) == CLIP_HW:
+            imc = torch.from_numpy(clips[:S, 1]).permute(0, 3, 1, 2).contiguous().to(dev)
+        else:
+            imc = torch.randint(0, 256, (S, 3, Hf, Wf), generator=gen,
+                                dtype=torch.uint8).to(dev)
+        xm, ym = realistic_maps(S, H, W, gen, dev)
         xs = resize_bilinear_bhw(xm, (H // 4, W // 4)).contiguous()
         ys = resize_bilinear_bhw(ym, (H // 4, W // 4)).contiguous()
-        fns = {
-            "bilinear_sample": (
-                lambda: cuda_warp.bilinear_sample(im, xm, ym),
-                lambda: cuda_warp.bilinear_sample_plain(im, xm, ym),
-                lambda: F.grid_sample(im_nchw, grid, mode="bilinear",
-                                      padding_mode="zeros", align_corners=False)),
-            "warp_uint8_cf_lowres": (
-                lambda: cuda_warp.warp_uint8_cf_lowres(imc, xs, ys, CLIP_HW),
-                lambda: cuda_warp.warp_uint8_cf_lowres_plain(imc, xs, ys, CLIP_HW),
-                None),
-        }
-        # Bytes: each input read once, each output written once (K1: the
-        # low-res maps, the frame read and the frame write).  f32 operations
-        # per output pixel, counted in csrc/warp.cu: the coordinates take 24
-        # (ndc_to_pixel 2 x 2, floor 2, corner + 1 2, clamps 8, distances 4,
-        # weights 4) and each channel's taps 7 (4 mul, 3 add); K1 adds the
-        # map up-sample, 2 x 9 (upsample_tap: 6 mul, 3 add), and 3 per
-        # channel (round, clip).  K2 here has C = 1, K1 has C = 3.
-        work = {"bilinear_sample": (4 * (3 * xm.numel() + im.numel()),
-                                    (24 + 7) * xm.numel()),
-                "warp_uint8_cf_lowres": (8 * xs.numel() + 2 * imc.numel(),
-                                         (18 + 24 + 10 * 3) * S * Hf * Wf)}
-        for name, (kern, plain, lib) in fns.items():
-            t = {"ms": device_ms(kern), "plain_ms": device_ms(plain),
-                 "library_ms": device_ms(lib) if lib else None,
-                 "call_ms": call_ms(kern)}
-            nbytes, ops = work[name]
-            t_bytes, t_ops = nbytes / bw * 1e3, ops / f32_peak * 1e3
-            t["bound_ms"] = max(t_bytes, t_ops)
-            t["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-            timed[(name, S)] = t
-            lib_txt = "none" if lib is None else f"{t['library_ms']:.5f} ms"
-            print(f"[6 times {name} S={S}] {card} | kernel {t['ms']:.5f} ms device "
-                  f"({t['call_ms']:.5f} ms per call from the host), plain "
-                  f"{t['plain_ms']:.5f} ms, library {lib_txt}, bound "
-                  f"{t['bound_ms'] * 1e3:.3f} us ({nbytes} B, {t['bound_by']})")
+        xf = resize_bilinear_bhw(xs, (Hf, Wf)).contiguous()
+        yf = resize_bilinear_bhw(ys, (Hf, Wf)).contiguous()
+        n_out = S * Hf * Wf
+        record("warp_uint8_cf_lowres", label,
+               lambda: cuda_warp.warp_uint8_cf_lowres(imc, xs, ys, (Hf, Wf)),
+               lambda: cuda_warp.warp_uint8_cf_lowres_plain(imc, xs, ys, (Hf, Wf)),
+               None, 8 * xs.numel() + imc.numel() + 3 * n_out,
+               (18 + 24 + 10 * 3) * n_out, plain_reps)
+        record("warp_uint8_cf", label,
+               lambda: cuda_warp.warp_uint8_cf(imc, xf, yf),
+               lambda: cuda_warp.warp_uint8_cf_plain(imc, xf, yf),
+               None, 8 * xf.numel() + imc.numel() + 3 * n_out, (24 + 10 * 3) * n_out,
+               plain_reps)
 
     T = clips.shape[1]
     torch.cuda.synchronize()
@@ -487,16 +560,21 @@ def phase_times(card: str, gen: torch.Generator, dev, engine, driver, clips,
           f"device idle {100 * (1 - busy / wall):.1f}% of the unprofiled wall, "
           f"top kernels (name, ms/frame, launches/frame): {top}")
     rows = []
-    for name, replaces in (("bilinear_sample", "stabnet_tpu/ops/pallas_warp.py:469"),
-                           ("warp_uint8_cf_lowres", "stabnet_tpu/ops/pallas_warp.py:575")):
-        t = timed[(name, 1)]
+    for name, label, replaces in (
+            ("bilinear_sample", "S=1", "stabnet_tpu/ops/pallas_warp.py:469"),
+            ("warp_uint8_cf_lowres", "S=1 720p", "stabnet_tpu/ops/pallas_warp.py:575"),
+            ("warp_uint8_cf", "S=1 720p", "stabnet_tpu/ops/pallas_warp.py:524")):
+        t = timed[(name, label)]
+        others = [{"shape": lab, **{k: v for k, v in tt.items() if k != "call_ms"}}
+                  for (n, lab), tt in timed.items() if n == name and lab != label]
         rows.append({"name": name, "route": "cuda",
                      "source": "stabnet_tpu_torch/csrc/warp.cu", "replaces": replaces,
                      "launches": launches[name],
-                     "max_abs_err": errs[0] if name == "bilinear_sample" else errs[1],
+                     "max_abs_err": errs[0] if name == "bilinear_sample" else errs[1][name],
                      "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                     "library_ms": t["library_ms"], "call_ms": t["call_ms"]})
+                     "library_ms": t["library_ms"], "call_ms": t["call_ms"],
+                     "shape": label, "other_shapes": others})
     return rows
 
 
@@ -514,21 +592,70 @@ def live_config(**kw):
                          do_theta_only_iter=-1, **kw)
 
 
+def flow_maps(S: int, H: int, W: int, gen: torch.Generator, device, amp: float = 3.0):
+    """Near-identity NDC maps: the pixel grid displaced by a smooth random
+    field of up to `amp` pixels, as the temporal loss's flow maps are."""
+    from stabnet_tpu_torch.ops import resize_bilinear_bhw
+
+    d = amp * (2 * torch.rand((2, S, 5, 9), generator=gen) - 1)
+    dx, dy = (resize_bilinear_bhw(v, (H, W)) for v in d)
+    px = torch.arange(W, dtype=torch.float32) + 0.5 + dx
+    py = torch.arange(H, dtype=torch.float32)[:, None] + 0.5 + dy
+    return ((px * (2.0 / W) - 1.0).contiguous().to(device),
+            (py * (2.0 / H) - 1.0).contiguous().to(device))
+
+
+# csrc/warp_grad.cu pass 2: 32 x 32 output tiles, a shared-memory window of
+# at most 4096 elements (taps' bounding box times the channels).
+SPLAT_TILE, SPLAT_WIN = 32, 4096
+
+
+def splat_tiles_fitting(xm: torch.Tensor, ym: torch.Tensor, H: int, W: int, C: int) -> float:
+    """The share of K4's pass-2 tiles whose tap window fits shared memory, by
+    the kernel's rule (maps of tile-multiple size)."""
+    B, Ho, Wo = xm.shape
+    corners = []
+    for m, n in ((xm, W), (ym, H)):
+        lo = torch.floor((m + 1.0) * (n / 2.0))
+        corners += [lo.clamp(0, n - 1), (lo + 1.0).clamp(0, n - 1)]
+
+    def tiles(t, reduce):
+        t = t.reshape(B, Ho // SPLAT_TILE, SPLAT_TILE, Wo // SPLAT_TILE, SPLAT_TILE)
+        return reduce(reduce(t, dim=4), dim=2)
+
+    amin = lambda t, dim: t.amin(dim=dim)
+    amax = lambda t, dim: t.amax(dim=dim)
+    ww = tiles(corners[1], amax) - tiles(corners[0], amin) + 1
+    wh = tiles(corners[3], amax) - tiles(corners[2], amin) + 1
+    return float(((ww * wh * C) <= SPLAT_WIN).float().mean())
+
+
 def phase_grad_kernels(gen: torch.Generator, dev) -> dict:
     """K4 and K6b against their plain versions (bit for bit: both are
-    deterministic), and K5/K6 through autograd against the kernels."""
+    deterministic), and K5/K6 through autograd against the kernels.  K4 runs
+    on flow-like maps (every pass-2 tile sums in shared memory), adversarial
+    maps (no tile does), half of each, and the mesh maps."""
     from stabnet_tpu_torch.ops import cuda_warp
 
     H, W = 288, 512
     worst = {"bilinear_splat": 0.0, "sample_map_grad": 0.0}
+    fitting = {}
     for name, B, C in (("bilinear_splat", 1, 2), ("bilinear_splat", 10, 2),
                        ("sample_map_grad", 2, 1), ("sample_map_grad", 20, 1)):
         x_r, y_r = realistic_maps(B, H, W, gen, dev)
         x_a, y_a, kind, _ = adversarial_maps(B, H, W, gen)
-        for maps, xm, ym in (("realistic", x_r, y_r),
-                             ("adversarial", x_a.to(dev), y_a.to(dev))):
+        x_a, y_a = x_a.to(dev), y_a.to(dev)
+        cases = [("realistic", x_r, y_r), ("adversarial", x_a, y_a)]
+        if name == "bilinear_splat":
+            x_f, y_f = flow_maps(B, H, W, gen, dev)
+            half = torch.arange(W, device=dev) < W // 2
+            cases += [("flow", x_f, y_f),
+                      ("half flow, half adversarial", torch.where(half, x_f, x_a),
+                       torch.where(half, y_f, y_a))]
+        for maps, xm, ym in cases:
             g = (torch.rand((B, H, W, C), generator=gen) - 0.5).to(dev)
             if name == "bilinear_splat":
+                fitting[maps] = splat_tiles_fitting(xm, ym, H, W, C)
                 got = cuda_warp.bilinear_splat(g, xm, ym, (H, W))
                 again = cuda_warp.bilinear_splat(g, xm, ym, (H, W))
                 want = cuda_warp.bilinear_splat_plain(g, xm, ym, (H, W))
@@ -544,6 +671,9 @@ def phase_grad_kernels(gen: torch.Generator, dev) -> dict:
             check(math.isfinite(err) and err == 0.0,
                   f"{name} B={B} {maps}: max abs {err} against the plain version")
             worst[name] = max(worst[name], err)
+    check(fitting["flow"] == 1.0 and fitting["adversarial"] == 0.0
+          and fitting["half flow, half adversarial"] == 0.5,
+          f"K4 maps do not drive both pass-2 branches as intended: {fitting}")
 
     # The autograd Functions route their backward through the kernels.
     B, C = 2, 2
@@ -561,9 +691,12 @@ def phase_grad_kernels(gen: torch.Generator, dev) -> dict:
           "K6 backward is not K6b")
     print(f"[7 K4/K6b] bilinear_splat vs plain on the card: max abs "
           f"{worst['bilinear_splat']:.3g} (tolerance 0: deterministic fixed-point "
-          f"sums; two runs equal) at (1|10, {H}, {W}, 2); sample_map_grad vs plain: "
-          f"max abs {worst['sample_map_grad']:.3g} (tolerance 0) at (2|20, {H}, {W}, 1); "
-          f"realistic + adversarial maps; K5/K6 autograd backward == K4/K6b")
+          f"sums; two runs equal) at (1|10, {H}, {W}, 2) on realistic, adversarial, "
+          f"flow and half-flow maps (share of pass-2 tiles summed in shared memory "
+          f"at B=10: { {k: round(v, 4) for k, v in fitting.items()} }); "
+          f"sample_map_grad vs plain: max abs {worst['sample_map_grad']:.3g} "
+          f"(tolerance 0) at (2|20, {H}, {W}, 1), realistic + adversarial maps; "
+          f"K5/K6 autograd backward == K4/K6b")
     return worst
 
 
@@ -587,7 +720,7 @@ def phase_train_path(tmp: str):
     for steps, extra in ((4, []), (6, ["--restore"])):
         n = steps - done
         expected = {"bilinear_sample": 2 * n, "warp_uint8_cf_lowres": 0,
-                    "bilinear_splat": n, "sample_map_grad": n}
+                    "warp_uint8_cf": 0, "bilinear_splat": n, "sample_map_grad": n}
         cuda_warp.reset_launch_counts()
         t0 = time.perf_counter()
         cli(base + ["--steps", str(steps)] + extra)
@@ -728,6 +861,29 @@ def profile_steps(step, steps: int = 3):
                                     e.count // steps) for e in top]
 
 
+def kernel_passes(fn, calls: int = 20):
+    """Device time per call of each kernel that `fn` launches, under
+    torch.profiler: [(short name, ms per call)], in launch order."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        m = re.search(r"(splat_\w+_kernel|Fill\w*<\w+>)", e.key)
+        out.append((m.group(1) if m else e.key[:40], e.self_device_time_total / calls / 1e3))
+    return out
+
+
 def phase_train_times(card: str, gen: torch.Generator, dev, data: str):
     """K2, K4 and K6b at their training shapes against their plain versions
     and the library's grid sampler; the v2_93 bf16 batch-10 step."""
@@ -771,7 +927,8 @@ def phase_train_times(card: str, gen: torch.Generator, dev, data: str):
             # 4, weights 4) and 4 products w * g per channel.
             nbytes = 4 * (g.numel() + 2 * n + B * H * W * C)
             ops = (24 + 4 * C) * n
-            extra = f"; the int64 zero-fill adds {8 * B * H * W * C} B"
+            extra = (f"; the int64 accumulator adds {8 * B * H * W * C} B, zero-filled, "
+                     f"updated by atomics and read back")
         else:
             kern = lambda: cuda_warp.sample_map_grad(im, xm, ym, g)
             plain = lambda: cuda_warp.sample_map_grad_plain(im, xm, ym, g)
@@ -787,6 +944,12 @@ def phase_train_times(card: str, gen: torch.Generator, dev, data: str):
                 g_nchw, im_nchw, grid, 0, 0, False, mask)
         t = {"ms": device_ms(kern), "plain_ms": device_ms(plain),
              "library_ms": device_ms(lib), "call_ms": call_ms(kern)}
+        if name == "bilinear_splat":
+            t["passes"] = {k: round(v, 5) for k, v in kernel_passes(kern)}
+            x_f, y_f = flow_maps(B, H, W, gen, dev)
+            t["flow_maps_ms"] = device_ms(lambda: cuda_warp.bilinear_splat(g, x_f, y_f, (H, W)))
+            extra += (f"; per pass (torch.profiler, ms per call) {t['passes']}; on "
+                      f"flow-like maps {t['flow_maps_ms']:.5f} ms")
         t_bytes, t_ops = nbytes / bw * 1e3, ops / f32_peak * 1e3
         t["bound_ms"] = max(t_bytes, t_ops)
         t["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
@@ -872,7 +1035,8 @@ def main() -> int:
                         "max_abs_err": grad_errs[name], "ms": t["ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-                        "call_ms": t["call_ms"]})
+                        "call_ms": t["call_ms"],
+                        **{k: t[k] for k in ("passes", "flow_maps_ms") if k in t}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

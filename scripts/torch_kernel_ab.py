@@ -1,0 +1,92 @@
+#!/usr/bin/env python3
+"""Time the port's color warps (K1, K3) and splat (K4) of several checkouts
+on one CUDA card, in turns.
+
+    python3 scripts/torch_kernel_ab.py parent=<dir> change=. change=. parent=<dir>
+
+Each `label=dir` runs, in the order given, in a process of its own with
+`dir`'s `stabnet_tpu_torch` first on the path (its kernels built from its own
+csrc/), and prints one JSON line: K1 and K3 (where the checkout has it) at
+720p S=1 and S=4 and at 1080p S=1, K4 at (10, 288, 512, 2) on the mesh maps
+with each pass's device time under torch.profiler.  Times are medians of
+CUDA-graph replays (chip_smoke.device_ms).  The timing helpers come from this
+checkout's chip_smoke.py.  A last line names the card and its power limit.
+Needs CUDA; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def helpers():
+    """This checkout's chip_smoke.py, loaded under its own name so that a
+    checkout on the path cannot shadow it."""
+    spec = importlib.util.spec_from_file_location("ab_chip_smoke",
+                                                  os.path.join(HERE, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def one(label: str, root: str) -> dict:
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    from stabnet_tpu_torch.ops import cuda_build, cuda_warp, resize_bilinear_bhw
+
+    assert cuda_build.PKG_DIR.startswith(os.path.abspath(root)), cuda_build.PKG_DIR
+    cs = helpers()
+    cuda_build.build(["warp", "warp_grad"])
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(0)
+    res = {"label": label, "root": root}
+    for shape, S, hw in (("S=1 720p", 1, (720, 1280)), ("S=4 720p", 4, (720, 1280)),
+                         ("S=1 1080p", 1, (1080, 1920))):
+        imc = torch.randint(0, 256, (S, 3) + hw, generator=gen, dtype=torch.uint8).to(dev)
+        xm, ym = cs.realistic_maps(S, 288, 512, gen, dev)
+        xs = resize_bilinear_bhw(xm, (72, 128)).contiguous()
+        ys = resize_bilinear_bhw(ym, (72, 128)).contiguous()
+        res[f"K1 {shape}"] = cs.device_ms(
+            lambda: cuda_warp.warp_uint8_cf_lowres(imc, xs, ys, hw))
+        if hasattr(cuda_warp, "warp_uint8_cf"):
+            xf = resize_bilinear_bhw(xs, hw).contiguous()
+            yf = resize_bilinear_bhw(ys, hw).contiguous()
+            res[f"K3 {shape}"] = cs.device_ms(lambda: cuda_warp.warp_uint8_cf(imc, xf, yf))
+    H, W = 288, 512
+    xm, ym = cs.realistic_maps(10, H, W, gen, dev)
+    g = (torch.rand((10, H, W, 2), generator=gen) - 0.5).to(dev)
+    kern = lambda: cuda_warp.bilinear_splat(g, xm, ym, (H, W))
+    res["K4 (10, 288, 512, 2)"] = cs.device_ms(kern)
+    res["K4 passes"] = cs.kernel_passes(kern)
+    return res
+
+
+def main(argv) -> int:
+    if len(argv) == 3 and argv[0] == "--one":
+        print(json.dumps(one(argv[1], argv[2])), flush=True)
+        return 0
+    runs = [a.split("=", 1) for a in argv]
+    if not runs or any(len(r) != 2 for r in runs):
+        print(__doc__, file=sys.stderr)
+        return 2
+    for label, root in runs:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", label, root],
+                              capture_output=True, text=True)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+        if proc.returncode != 0 or not lines:
+            print(proc.stdout + proc.stderr, file=sys.stderr)
+            return 1
+        print(lines[-1], flush=True)
+    print(helpers().card_line())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

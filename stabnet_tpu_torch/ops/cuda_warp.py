@@ -6,6 +6,9 @@ K2  `bilinear_sample`      replaces stabnet_tpu/ops/pallas_warp.py:469
 K1  `warp_uint8_cf_lowres` replaces stabnet_tpu/ops/pallas_warp.py:575
                            `warp_uint8_cf_lowres` (uint8 color warp with the
                            map up-sample fused in).
+K3  `warp_uint8_cf`        replaces pallas_warp.py:524 `warp_uint8_cf` (the
+                           same color warp at full-resolution maps; K1's
+                           kernel body, on no path, as in the JAX package).
 K4  `bilinear_splat`       replaces pallas_warp.py:738 `bilinear_splat_pallas`
                            (the strict sampler's adjoint in the image).
 K6b `sample_map_grad`      replaces the backward of pallas_warp.py:916
@@ -48,6 +51,8 @@ def _warp_lib() -> ctypes.CDLL:
         lib.stabnet_bilinear_sample_f32.restype = _I
         lib.stabnet_warp_uint8_lowres.argtypes = [_P] * 12 + [_I] * 8 + [_P]
         lib.stabnet_warp_uint8_lowres.restype = _I
+        lib.stabnet_warp_uint8_cf.argtypes = [_P] * 4 + [_I] * 6 + [_P]
+        lib.stabnet_warp_uint8_cf.restype = _I
         lib._stabnet_typed = True
     return lib
 
@@ -174,6 +179,7 @@ def bilinear_sample(im: torch.Tensor, x_ndc: torch.Tensor, y_ndc: torch.Tensor,
     im: (B, H, W, C) float32, maps (B, Ho, Wo) float32, all contiguous.
     """
     _no_grad_inputs("bilinear_sample", im, x_ndc, y_ndc)
+    _check_index_range("bilinear_sample", im.shape[1:3])
     if _on_cpu(im, x_ndc, y_ndc):
         return bilinear_sample_plain(im, x_ndc, y_ndc, strict_edge)
     _require(im.dtype == torch.float32, f"image must be float32, got {im.dtype}")
@@ -196,22 +202,95 @@ def bilinear_sample(im: torch.Tensor, x_ndc: torch.Tensor, y_ndc: torch.Tensor,
 bilinear_sample.launches = 0
 
 
-# --- K1: uint8 color warp with the fused map up-sample -----------------------
+# --- K1 and K3: the uint8 color warp ------------------------------------------
+
+_INDEX_MAX = 2 ** 31 - 1   # the kernels index within one image in 32 bits
+_GRID_MAX = 65535          # CUDA's limit on a grid's y and z extents
+_SIDE_MAX = 2 ** 22 - 2    # csrc/bilinear.cuh floors coordinates below 2^22
+
+
+def _check_index_range(name: str, sides, batch: int = 1, tiles_y: int = 1,
+                       *counts: int) -> None:
+    """Refuse sizes beyond what the kernels index: image sides (the exact
+    floor of csrc/bilinear.cuh), the elements of one image of each array in
+    `counts` (32-bit offsets), one grid layer per image and one block row
+    per tile row of the output.  Checked on every device, so the plain
+    versions take exactly what the kernels take."""
+    _require(max(sides) <= _SIDE_MAX and max(counts, default=0) <= _INDEX_MAX
+             and batch <= _GRID_MAX and tiles_y <= _GRID_MAX,
+             f"{name}: sizes beyond the kernels' 32-bit indexing (sides "
+             f"{tuple(sides)}, elements per image {max(counts, default=0)}, batch "
+             f"{batch}, tile rows {tiles_y})")
+
+
+def _check_frames(name: str, imc: torch.Tensor, out_hw: Tuple[int, int]):
+    """(B, C, H, W, Ho, Wo) of a color warp, with its size checks."""
+    _require(imc.dim() == 4, f"frames must be (B, C, H, W), got {tuple(imc.shape)}")
+    B, C, H, W = (int(v) for v in imc.shape)
+    Ho, Wo = (int(v) for v in out_hw)
+    _require(Ho > 0 and Wo > 0, f"bad output size {out_hw}")
+    _require(1 <= C <= 4, f"{name}: 1 to 4 channels, got {C}")
+    _check_index_range(name, (H, W), B, -(-Ho // 8), C * H * W, C * Ho * Wo)
+    return B, C, H, W, Ho, Wo
+
+
+def _check_frames_on_card(imc: torch.Tensor) -> None:
+    _require(imc.dtype == torch.uint8, f"frames must be uint8, got {imc.dtype}")
+    _require(imc.is_contiguous(), "frames must be contiguous")
+
+
+def warp_uint8_cf_plain(imc: torch.Tensor, x_ndc: torch.Tensor,
+                        y_ndc: torch.Tensor) -> torch.Tensor:
+    """Sample the channels-first uint8 frames with strict edges at NDC maps,
+    round half to even and clip to uint8.
+
+    imc: (B, C, H, W) uint8; maps (B, Ho, Wo) float32.  Returns (B, Ho, Wo,
+    C) uint8: the JAX reference of tests/test_pallas_warp.py:128-130.
+    """
+    img = imc.permute(0, 2, 3, 1).float()
+    warped = bilinear_sample_plain(img, x_ndc, y_ndc)
+    return torch.clamp(torch.round(warped), 0, 255).to(torch.uint8)
+
+
+def warp_uint8_cf(imc: torch.Tensor, x_ndc: torch.Tensor,
+                  y_ndc: torch.Tensor) -> torch.Tensor:
+    """K3: `warp_uint8_cf_plain` as one CUDA kernel (plain on CPU).
+
+    imc: (B, C, H, W) uint8 contiguous, 1 <= C <= 4; maps (B, Ho, Wo)
+    float32 contiguous.  K1's kernel body, reading full-resolution maps.
+    """
+    _no_grad_inputs("warp_uint8_cf", imc, x_ndc, y_ndc)
+    _require(x_ndc.dim() == 3, f"maps must be (B, Ho, Wo), got {tuple(x_ndc.shape)}")
+    B, C, H, W, Ho, Wo = _check_frames("warp_uint8_cf", imc, x_ndc.shape[1:])
+    if _on_cpu(imc, x_ndc, y_ndc):
+        return warp_uint8_cf_plain(imc, x_ndc, y_ndc)
+    _check_frames_on_card(imc)
+    _check_maps(x_ndc, y_ndc, B)
+    out = torch.empty((B, Ho, Wo, C), dtype=torch.uint8, device=imc.device)
+    with torch.cuda.device(imc.device):
+        stream = torch.cuda.current_stream(imc.device).cuda_stream
+        err = _warp_lib().stabnet_warp_uint8_cf(
+            imc.data_ptr(), x_ndc.data_ptr(), y_ndc.data_ptr(), out.data_ptr(),
+            B, C, H, W, Ho, Wo, stream)
+    _launch_check(err, "warp_uint8_cf")
+    warp_uint8_cf.launches += 1
+    return out
+
+
+warp_uint8_cf.launches = 0
+
 
 def warp_uint8_cf_lowres_plain(imc: torch.Tensor, x_ndc_lr: torch.Tensor,
                                y_ndc_lr: torch.Tensor,
                                out_hw: Tuple[int, int]) -> torch.Tensor:
-    """Up-sample the low-res NDC maps to `out_hw`, sample the channels-first
-    uint8 frames with strict edges, round half to even and clip to uint8.
+    """Up-sample the low-res NDC maps to `out_hw`, then `warp_uint8_cf_plain`.
 
     imc: (B, C, H, W) uint8; maps (B, h, w) float32.  Returns (B, Ho, Wo, C)
     uint8.  The JAX package's equivalent is stream/engine.py:200-204.
     """
     xs = resize_bilinear_bhw(x_ndc_lr.float(), tuple(out_hw))
     ys = resize_bilinear_bhw(y_ndc_lr.float(), tuple(out_hw))
-    img = imc.permute(0, 2, 3, 1).float()
-    warped = bilinear_sample_plain(img, xs, ys)
-    return torch.clamp(torch.round(warped), 0, 255).to(torch.uint8)
+    return warp_uint8_cf_plain(imc, xs, ys)
 
 
 def warp_uint8_cf_lowres(imc: torch.Tensor, x_ndc_lr: torch.Tensor,
@@ -219,19 +298,18 @@ def warp_uint8_cf_lowres(imc: torch.Tensor, x_ndc_lr: torch.Tensor,
                          out_hw: Tuple[int, int]) -> torch.Tensor:
     """K1: `warp_uint8_cf_lowres_plain` as one CUDA kernel (plain on CPU).
 
-    imc: (B, C, H, W) uint8 contiguous; maps (B, h, w) float32 contiguous.
+    imc: (B, C, H, W) uint8 contiguous, 1 <= C <= 4; maps (B, h, w) float32
+    contiguous.
     """
     _no_grad_inputs("warp_uint8_cf_lowres", imc, x_ndc_lr, y_ndc_lr)
+    B, C, H, W, Ho, Wo = _check_frames("warp_uint8_cf_lowres", imc, out_hw)
+    _check_index_range("warp_uint8_cf_lowres", (H, W), B, 1,
+                       int(x_ndc_lr.shape[-2]) * int(x_ndc_lr.shape[-1]))
     if _on_cpu(imc, x_ndc_lr, y_ndc_lr):
         return warp_uint8_cf_lowres_plain(imc, x_ndc_lr, y_ndc_lr, out_hw)
-    _require(imc.dtype == torch.uint8, f"frames must be uint8, got {imc.dtype}")
-    _require(imc.dim() == 4 and imc.is_contiguous(),
-             f"frames must be a contiguous (B, C, H, W), got {tuple(imc.shape)}")
-    B, C, H, W = imc.shape
+    _check_frames_on_card(imc)
     _check_maps(x_ndc_lr, y_ndc_lr, B)
     _, h, w = x_ndc_lr.shape
-    Ho, Wo = (int(v) for v in out_hw)
-    _require(Ho > 0 and Wo > 0, f"bad output size {out_hw}")
     dev = imc.device
     row = device_taps(h, Ho, dev)
     col = device_taps(w, Wo, dev)
@@ -324,21 +402,23 @@ def bilinear_splat(g: torch.Tensor, x_ndc: torch.Tensor, y_ndc: torch.Tensor,
                    im_hw: Tuple[int, int]) -> torch.Tensor:
     """K4: `bilinear_splat_plain` as one CUDA kernel call (three passes;
     plain version on CPU).  g (B, Ho, Wo, C) float32, maps (B, Ho, Wo)
-    float32, all contiguous."""
+    float32, all contiguous, 1 <= C <= 4."""
     _no_grad_inputs("bilinear_splat", g, x_ndc, y_ndc)
+    _require(g.dim() == 4, f"cotangent must be (B, Ho, Wo, C), got {tuple(g.shape)}")
+    B, Ho, Wo, C = (int(v) for v in g.shape)
+    H, W = (int(v) for v in im_hw)
+    _require(H > 0 and W > 0, f"bad image size {im_hw}")
+    _require(1 <= C <= 4, f"bilinear_splat: 1 to 4 channels, got {C}")
+    _check_index_range("bilinear_splat", (H, W), B, -(-Ho // 32), C * H * W, C * Ho * Wo)
     if _on_cpu(g, x_ndc, y_ndc):
         return bilinear_splat_plain(g, x_ndc, y_ndc, im_hw)
     _require(g.dtype == torch.float32, f"cotangent must be float32, got {g.dtype}")
-    _require(g.dim() == 4 and g.is_contiguous(),
-             f"cotangent must be a contiguous (B, Ho, Wo, C), got {tuple(g.shape)}")
-    B, Ho, Wo, C = g.shape
+    _require(g.is_contiguous(), "cotangent must be contiguous")
     _check_maps(x_ndc, y_ndc, B)
     _require(tuple(x_ndc.shape[1:]) == (Ho, Wo),
              f"maps {tuple(x_ndc.shape)} do not match the cotangent {tuple(g.shape)}")
-    H, W = (int(v) for v in im_hw)
-    _require(H > 0 and W > 0, f"bad image size {im_hw}")
     dev = g.device
-    acc = torch.zeros((B, H, W, C), dtype=torch.int64, device=dev)
+    acc = torch.empty((B, H, W, C), dtype=torch.int64, device=dev)  # pass 1 zero-fills
     max_bits = torch.zeros((1,), dtype=torch.int32, device=dev)
     out = torch.empty((B, H, W, C), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -390,6 +470,7 @@ def sample_map_grad(im: torch.Tensor, x_ndc: torch.Tensor, y_ndc: torch.Tensor,
     im (B, H, W, C), maps (B, Ho, Wo), g (B, Ho, Wo, C), all float32 and
     contiguous."""
     _no_grad_inputs("sample_map_grad", im, x_ndc, y_ndc, g)
+    _check_index_range("sample_map_grad", im.shape[1:3])
     if _on_cpu(im, x_ndc, y_ndc, g):
         return sample_map_grad_plain(im, x_ndc, y_ndc, g)
     for name, t in (("image", im), ("cotangent", g)):
@@ -473,7 +554,7 @@ def bilinear_sample_const_image(im: torch.Tensor, x_ndc: torch.Tensor,
                                    y_ndc.contiguous())
 
 
-KERNELS = (bilinear_sample, warp_uint8_cf_lowres, bilinear_splat,
+KERNELS = (bilinear_sample, warp_uint8_cf_lowres, warp_uint8_cf, bilinear_splat,
            sample_map_grad)
 
 

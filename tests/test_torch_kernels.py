@@ -6,8 +6,9 @@ tests/test_pallas_warp.py runs them, and to the XLA sampler's autodiff.
 Tolerances: K2 1e-5 absolute (f32 sampler, matrix-unit formulation vs
 gather); K1 1 uint8 LSB (rounding of coordinates that differ in the last
 bits: the Pallas kernel converts NDC to pixels before the map up-sample, the
-port after it); K4 and K5 2e-6 absolute (the same sums in another order);
-K6 1e-4 (derivatives of magnitude ~50, as tests/test_pallas_warp.py:233).
+port after it); K3 0 (both sample full-resolution maps); K4 and K5 2e-6
+absolute (the same sums in another order); K6 1e-4 (derivatives of
+magnitude ~50, as tests/test_pallas_warp.py:233).
 
 The `cuda` tests hold each kernel to its plain version on a card; they skip
 without one.  On a machine with a card and no JAX:
@@ -115,6 +116,35 @@ def test_k1_plain_matches_pallas(out_hw):
     assert (diff == 0).mean() > 0.999
 
 
+def test_k3_plain_matches_pallas():
+    """tests/test_pallas_warp.py:115-136: a size that is not tile-aligned;
+    K3 on the CPU equals the Pallas kernel (interpret mode, exact=True) and
+    the XLA sampler rounded to uint8, bit for bit."""
+    jnp, pallas_warp = _jax()
+    from stabnet_tpu.ops.warp import bilinear_sample
+
+    rng = np.random.RandomState(4)
+    B, H, W, C = 1, 120, 192, 3
+    im = rng.randint(0, 256, (B, H, W, C), dtype=np.uint8)
+    gx = np.linspace(-1, 1, W, dtype=np.float32)
+    gy = np.linspace(-1, 1, H, dtype=np.float32)
+    xg, yg = np.meshgrid(gx, gy)
+    xm = (xg * 0.93 - 0.02)[None].astype(np.float32)
+    ym = (yg * 0.93 + 0.01)[None].astype(np.float32)
+    imc = np.ascontiguousarray(np.moveaxis(im, -1, 1))
+    ref = np.asarray(bilinear_sample(jnp.asarray(im, jnp.float32),
+                                     jnp.asarray(xm), jnp.asarray(ym)))
+    ref_u8 = np.clip(np.round(ref), 0, 255).astype(np.uint8)
+    pallas = np.asarray(pallas_warp.warp_uint8_cf(
+        jnp.asarray(imc), jnp.asarray(xm), jnp.asarray(ym), y_band=32,
+        x_band=128, interpret=True, exact=True))
+    got = cuda_warp.warp_uint8_cf(torch.from_numpy(imc), torch.from_numpy(xm),
+                                  torch.from_numpy(ym)).numpy()
+    assert got.shape == (B, H, W, C) and got.dtype == np.uint8
+    np.testing.assert_array_equal(got, pallas)
+    np.testing.assert_array_equal(got, ref_u8)
+
+
 def test_cpu_tensors_never_count_a_launch():
     rng = np.random.RandomState(2)
     im = torch.from_numpy(rng.rand(1, 8, 16, 1).astype(np.float32))
@@ -124,6 +154,7 @@ def test_cpu_tensors_never_count_a_launch():
     cuda_warp.bilinear_sample(im, x, x)
     cuda_warp.warp_uint8_cf_lowres(imc, x[:, :2, :4].contiguous(),
                                    x[:, :2, :4].contiguous(), (8, 16))
+    cuda_warp.warp_uint8_cf(imc, x, x)
     cuda_warp.bilinear_splat(im, x, x, (6, 10))
     cuda_warp.sample_map_grad(im, x, x, im)
     assert [k.launches for k in cuda_warp.KERNELS] == before
@@ -142,6 +173,7 @@ KERNEL_CALLS = {
     "bilinear_sample": lambda im, x, imc: cuda_warp.bilinear_sample(im, x, x),
     "warp_uint8_cf_lowres": lambda im, x, imc: cuda_warp.warp_uint8_cf_lowres(
         imc, x, x, (8, 16)),
+    "warp_uint8_cf": lambda im, x, imc: cuda_warp.warp_uint8_cf(imc, x, x),
     "bilinear_splat": lambda im, x, imc: cuda_warp.bilinear_splat(im, x, x, (8, 16)),
     "sample_map_grad": lambda im, x, imc: cuda_warp.sample_map_grad(im, x, x, im),
 }
@@ -162,6 +194,44 @@ def test_kernels_refuse_inputs_that_require_grad(name, device):
                 KERNEL_CALLS[name](im, x, imc)
         else:
             KERNEL_CALLS[name](im, x, imc)
+
+
+def _meta(*shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+OVERSIZE_CALLS = {
+    # 3 x 30000 x 30000 frame elements: past 2^31 within one image.
+    "k3 frame": lambda: cuda_warp.warp_uint8_cf(
+        _meta(1, 3, 30000, 30000, dtype=torch.uint8), _meta(1, 8, 16), _meta(1, 8, 16)),
+    "k1 frame": lambda: cuda_warp.warp_uint8_cf_lowres(
+        _meta(1, 3, 30000, 30000, dtype=torch.uint8), _meta(1, 8, 16), _meta(1, 8, 16),
+        (8, 16)),
+    "k1 output": lambda: cuda_warp.warp_uint8_cf_lowres(
+        _meta(1, 3, 8, 16, dtype=torch.uint8), _meta(1, 8, 16), _meta(1, 8, 16),
+        (40000, 20000)),
+    # One grid layer per image: at most 65535 images.
+    "k3 batch": lambda: cuda_warp.warp_uint8_cf(
+        _meta(70000, 3, 8, 16, dtype=torch.uint8), _meta(70000, 8, 16),
+        _meta(70000, 8, 16)),
+    "k4 image": lambda: cuda_warp.bilinear_splat(
+        _meta(1, 8, 16, 2), _meta(1, 8, 16), _meta(1, 8, 16), (40000, 40000)),
+    # Every kernel floors coordinates exactly only below 2^22 pixels.
+    "k2 side": lambda: cuda_warp.bilinear_sample(
+        _meta(1, 1, 5_000_000, 1), _meta(1, 8, 16), _meta(1, 8, 16)),
+    "k6b side": lambda: cuda_warp.sample_map_grad(
+        _meta(1, 5_000_000, 1, 1), _meta(1, 8, 16), _meta(1, 8, 16), _meta(1, 8, 16, 1)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(OVERSIZE_CALLS))
+def test_wrappers_refuse_sizes_beyond_32_bit_indexing(case):
+    """K1, K3 and K4 index within one image in 32 bits and put the batch on
+    the grid's z axis, and every kernel floors coordinates with a float
+    trick exact below 2^22 pixels; the wrappers refuse larger sizes on every
+    device, before any is touched (the meta device holds no memory)."""
+    with pytest.raises(ValueError, match="32-bit indexing"):
+        OVERSIZE_CALLS[case]()
 
 
 def _splat_case():
@@ -307,15 +377,43 @@ def test_kernels_match_plain_on_the_card():
                         dtype=torch.uint8).to(dev)
     xs = resize_bilinear_bhw(x, (18, 34)).contiguous()
     ys = resize_bilinear_bhw(y, (18, 34)).contiguous()
-    got = cuda_warp.warp_uint8_cf_lowres(imc, xs, ys, (181, 243))
-    want = cuda_warp.warp_uint8_cf_lowres_plain(imc, xs, ys, (181, 243))
-    assert int((got.int() - want.int()).abs().max()) <= 1
+    # K1 at a ragged size, from maps whose row pass a tile stages in shared
+    # memory (18 x 34) and from maps too wide for that (72 x 136).
+    for xl, yl in ((xs, ys), (x, y)):
+        before = cuda_warp.warp_uint8_cf_lowres.launches
+        got = cuda_warp.warp_uint8_cf_lowres(imc, xl, yl, (181, 243))
+        assert cuda_warp.warp_uint8_cf_lowres.launches == before + 1
+        assert torch.equal(got, cuda_warp.warp_uint8_cf_lowres_plain(imc, xl, yl, (181, 243)))
     with pytest.raises(ValueError):        # the wrapper refuses what K1 does not take
         cuda_warp.warp_uint8_cf_lowres(imc.float(), xs, ys, (181, 243))
+    # K3 at full-resolution maps of a ragged size: near-identity, random and
+    # zoomed-out maps.
+    xf = resize_bilinear_bhw(xs, (181, 243)).contiguous()
+    yf = resize_bilinear_bhw(ys, (181, 243)).contiguous()
+    near_xf = ((torch.arange(243, device=dev) + 0.5) * (2 / 243) - 1 + 0.01 * xf).contiguous()
+    near_yf = ((torch.arange(181, device=dev)[:, None] + 0.5) * (2 / 181) - 1
+               + 0.01 * yf).contiguous()
+    for xm, ym in ((near_xf, near_yf), (xf, yf), (xf * 3.0, yf * 3.0)):
+        before = cuda_warp.warp_uint8_cf.launches
+        got = cuda_warp.warp_uint8_cf(imc, xm, ym)
+        assert cuda_warp.warp_uint8_cf.launches == before + 1
+        assert torch.equal(got, cuda_warp.warp_uint8_cf_plain(imc, xm, ym))
+    # K4 where every 32 x 32 tile's window fits shared memory (near-identity
+    # maps), where none does (uniform random maps), and half and half.
     g = torch.rand((2, 72, 136, 2), generator=gen).to(dev)
-    before = cuda_warp.bilinear_splat.launches
+    ident_x = (torch.arange(136, device=dev) + 0.5) * (2 / 136) - 1
+    ident_y = (torch.arange(72, device=dev) + 0.5) * (2 / 72) - 1
+    near_x = (ident_x[None, None, :] + 0.01 * (x - x.mean())).contiguous()
+    near_y = (ident_y[None, :, None] + 0.01 * (y - y.mean())).contiguous()
+    half = torch.arange(136, device=dev) < 64
+    for xm, ym in ((near_x, near_y), (x, y),
+                   (torch.where(half, near_x, x), torch.where(half, near_y, y))):
+        before = cuda_warp.bilinear_splat.launches
+        got = cuda_warp.bilinear_splat(g, xm, ym, (72, 136))
+        assert cuda_warp.bilinear_splat.launches == before + 1
+        assert torch.equal(got, cuda_warp.bilinear_splat_plain(g, xm, ym, (72, 136)))
+        assert torch.equal(got, cuda_warp.bilinear_splat(g, xm, ym, (72, 136)))
     got = cuda_warp.bilinear_splat(g, x, y, (61, 97))
-    assert cuda_warp.bilinear_splat.launches == before + 1
     assert torch.equal(got, cuda_warp.bilinear_splat_plain(g, x, y, (61, 97)))
     assert torch.equal(got, cuda_warp.bilinear_splat(g, x, y, (61, 97)))  # deterministic
     got = cuda_warp.sample_map_grad(im, x, y, g[..., :1].contiguous())
