@@ -8,8 +8,15 @@ Phases (each prints one line or a few; any failure stops the run with a
 nonzero exit):
   1. device: the card (nvidia-smi name and power limit) and the kernels'
      build from stabnet_tpu_torch/csrc (one nvcc per source, in parallel);
-  2. K2 (f32 sampler) against its plain PyTorch version on the card, on
-     realistic and adversarial maps, both strict_edge modes;
+  2. K2 (f32 sampler at given maps) against its plain PyTorch version on
+     the card, bit for bit, at S=1 and S=4 and at the training shapes
+     (10, 288, 512, 2) and (20, 288, 512, 1), and at 5 channels (read at
+     run time), on realistic and adversarial maps, both strict_edge modes;
+     K2m (the serving warp: dense maps, black mask and sampler in one
+     launch) against its plain version, bit for bit, at S=1 and S=4 with
+     the frame read in place from the 13-channel stack, in the stack layout
+     of a refine pass, at 289x515, on a zoomed-out mesh with black borders
+     and on a mesh with Z < 0 in some cells;
   3. K1 (uint8 color warp, fused map up-sample) and K3 (the same warp at
      full-resolution maps) against their plain versions, bit for bit, at
      720p S=1 and S=4, 1080p, 719x1283 and zoomed maps, and at 360x640
@@ -19,9 +26,11 @@ nonzero exit):
      and StreamEngine.stabilize_clip at S=4, with the kernels' launch counts
      read around each run;
   5. card against CPU in f32 (TF32 off), 8 frames;
-  6. serving times: CUDA events, 5 warm-ups, median of 50 runs; K1 and K3
-     at 720p S=1 and S=4 and at 1080p (K3 is on no path, as in the JAX
-     package);
+  6. serving times: CUDA events, 5 warm-ups, median of 50 runs; K2m at
+     S=1 and S=4 beside the unfused chain it replaces (dense maps, black
+     mask, frame copy, K2), K2 at S=1 and S=4, K1 and K3 at 720p S=1 and
+     S=4 and at 1080p (K3 is on no path, as in the JAX package); the S=1
+     path's device operations per frame;
   7. K4 (splat) and K6b (map gradient) against their plain versions on the
      card, realistic and adversarial maps, K4 also on flow-like maps (every
      pass-2 tile sums in shared memory) and half of each; K5/K6 through
@@ -102,15 +111,34 @@ def exact_ndc(px: np.ndarray, size: int):
     return out, ok
 
 
-def realistic_maps(S: int, H: int, W: int, gen: torch.Generator, device,
-                   spread: float = 0.05, zoom: float = 1.0):
-    """Dense NDC maps of random meshes (vertex offsets ~ N(0, spread))."""
-    from stabnet_tpu_torch.ops import base_mesh, dense_maps, mesh_to_homographies
+def realistic_homographies(S: int, gen: torch.Generator, device,
+                           spread: float = 0.05, zoom: float = 1.0):
+    """(S, 4, 4, 3, 3) cell homographies of random meshes (vertex offsets
+    ~ N(0, spread), clamped as theta_to_mesh clamps)."""
+    from stabnet_tpu_torch.ops import base_mesh, mesh_to_homographies
 
     mesh = torch.from_numpy(base_mesh(4, 4)) * zoom
     mesh = (mesh + spread * torch.randn((S, 5, 5, 2), generator=gen)).clamp(-1.25, 1.25)
-    Hs = mesh_to_homographies(mesh.to(device), 4, 4)
-    return dense_maps(Hs, H, W)
+    return mesh_to_homographies(mesh.to(device), 4, 4)
+
+
+def realistic_maps(S: int, H: int, W: int, gen: torch.Generator, device,
+                   spread: float = 0.05, zoom: float = 1.0):
+    """Dense NDC maps of random meshes (vertex offsets ~ N(0, spread))."""
+    from stabnet_tpu_torch.ops import dense_maps
+
+    return dense_maps(realistic_homographies(S, gen, device, spread, zoom), H, W)
+
+
+def stack_frame(S: int, H: int, W: int, gen: torch.Generator, device,
+                channels_last: bool = False):
+    """The current frame as the serving path hands it to K2m: the last
+    channel of a 13-channel input stack, a view.  `assemble_input` stacks
+    planes (pixel stride 1, image stride 13 H W); a refine pass rebuilds
+    the stack channels last (pixel stride 13)."""
+    planes = (torch.rand((S, 13, H, W), generator=gen) - 0.5).to(device)
+    stack = planes.permute(0, 2, 3, 1)
+    return (stack.contiguous() if channels_last else stack)[..., 12:13]
 
 
 def adversarial_maps(S: int, H: int, W: int, gen: torch.Generator):
@@ -194,7 +222,8 @@ def profile_path(engine, clip: np.ndarray, frames: int = 20):
     """The same `frames` steps at S=1 with per-frame readback, run twice from
     a fresh state: without the profiler for the wall time, then under
     torch.profiler for the summed kernel time and the kernels that take most.
-    Returns (wall, profiled wall, kernel time) in ms/frame and the top list."""
+    Returns (wall, profiled wall, kernel time) in ms/frame, the device
+    operations (kernels, copies, fills) per frame and the top list."""
     from torch.profiler import ProfilerActivity, profile
 
     from stabnet_tpu_torch.stream import video_io
@@ -217,8 +246,9 @@ def profile_path(engine, clip: np.ndarray, frames: int = 20):
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
+    ops = sum(e.count for e in kernels) / frames
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    return (wall, wall_prof, busy_us / frames / 1e3,
+    return (wall, wall_prof, busy_us / frames / 1e3, ops,
             [(e.key[:48], round(e.self_device_time_total / frames / 1e3, 4), e.count // frames)
              for e in top])
 
@@ -226,8 +256,9 @@ def profile_path(engine, clip: np.ndarray, frames: int = 20):
 # --- phases -----------------------------------------------------------------
 
 SOURCES = ("warp", "warp_grad")
-KERNEL_NAMES = ("warp_uint8_kernel", "bilinear_sample_kernel", "splat_max_kernel",
-                "splat_scatter_kernel", "splat_convert_kernel", "sample_map_grad_kernel")
+KERNEL_NAMES = ("warp_uint8_kernel", "bilinear_sample_kernel", "warp_mesh_kernel",
+                "splat_max_kernel", "splat_scatter_kernel", "splat_convert_kernel",
+                "sample_map_grad_kernel")
 
 
 def phase_device():
@@ -282,15 +313,19 @@ def sass_counts(sass: str) -> dict:
     return sizes
 
 
-def phase_k2(gen: torch.Generator, dev) -> float:
-    from stabnet_tpu_torch.ops import cuda_warp
+def phase_k2(gen: torch.Generator, dev):
+    """K2 and K2m against their plain versions, bit for bit.  Returns the
+    worst max abs error of each."""
+    from stabnet_tpu_torch.ops import cuda_warp, mesh_tables
 
     H, W = 288, 512
-    worst = 0.0
-    for S in (1, 4):
-        im = (torch.rand((S, H, W, 1), generator=gen) - 0.5).to(dev)
-        x_r, y_r = realistic_maps(S, H, W, gen, dev)
-        x_a, y_a, kind, px = adversarial_maps(S, H, W, gen)
+    worst = {"bilinear_sample": 0.0, "warp_mesh": 0.0}
+    # The serving shapes, the K5 and K6 forwards' and, smaller, 5 channels.
+    for S, h, w, C in ((1, H, W, 1), (4, H, W, 1), (10, H, W, 2), (20, H, W, 1),
+                       (2, 72, 136, 5)):
+        im = (torch.rand((S, h, w, C), generator=gen) - 0.5).to(dev)
+        x_r, y_r = realistic_maps(S, h, w, gen, dev)
+        x_a, y_a, kind, px = adversarial_maps(S, h, w, gen)
         for name, xm, ym in (("realistic", x_r, y_r),
                              ("adversarial", x_a.to(dev), y_a.to(dev))):
             for strict in (True, False):
@@ -298,16 +333,50 @@ def phase_k2(gen: torch.Generator, dev) -> float:
                 want = cuda_warp.bilinear_sample_plain(im, xm, ym, strict_edge=strict)
                 torch.cuda.synchronize()
                 err = float((got - want).abs().max())
-                worst = max(worst, err)
-                check(err <= 1e-5, f"K2 S={S} {name} strict={strict}: max abs {err}")
+                worst["bilinear_sample"] = max(worst["bilinear_sample"], err)
+                check(torch.equal(got, want),
+                      f"K2 ({S}, {h}, {w}, {C}) {name} strict={strict}: max abs {err}")
         # The strict edge really is exercised: samples at exactly x == W-1.
         edge = torch.from_numpy((kind == 0) | (kind == 2))
         strict_out = cuda_warp.bilinear_sample(im, x_a.to(dev), y_a.to(dev))
         check(bool((strict_out[..., 0].cpu()[edge] == 0).all()),
               "K2 strict edge: a sample at x == W-1 is not 0")
-    print(f"[2 K2] bilinear_sample vs plain on the card: max abs {worst:.3g} "
-          f"(tolerance 1e-5) at (1|4, {H}, {W}, 1), realistic + adversarial "
-          f"maps, strict_edge True/False")
+
+    # K2m: (S, frame size, mesh zoom, stack channels last, cells negated).
+    cases = [(1, (H, W), 1.0, False, False), (4, (H, W), 1.0, False, False),
+             (2, (H, W), 1.0, True, False), (1, (289, 515), 1.0, False, False),
+             (2, (H, W), 1.2, False, False), (2, (H, W), 1.0, False, True)]
+    shares = []
+    for S, (h, w), zoom, channels_last, negate in cases:
+        frame = stack_frame(S, h, w, gen, dev, channels_last)
+        Hs = realistic_homographies(S, gen, dev, zoom=zoom)
+        if negate:
+            # -H maps as H does, through the sign guard's other branch.
+            Hs[:, 1:3, 1:3] *= -1.0
+        tables = mesh_tables(h, w, 4, 4, dev)
+        got = cuda_warp.warp_mesh(frame, Hs, tables)
+        want = cuda_warp.warp_mesh_plain(frame, Hs, tables)
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        worst["warp_mesh"] = max(worst["warp_mesh"], err)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"K2m S={S} {h}x{w} zoom={zoom} negated={negate}: max abs {err}")
+        black = float(got[1].mean())
+        if zoom > 1.0:
+            check(0.05 < black < 0.95, f"K2m zoomed-out mesh: black share {black}")
+        if negate:
+            gx, gy, cc, cr = tables
+            z_row = Hs[..., 2, :][:, cr.long()][:, :, cc.long()]
+            Z = z_row[..., 0] * gx + z_row[..., 1] * gy[:, None] + z_row[..., 2]
+            check(float((Z < 0).float().mean()) > 0.2, "K2m: no Z < 0 in the negated cells")
+        shares.append(round(black, 4))
+    print(f"[2 K2/K2m] bilinear_sample vs plain on the card: max abs "
+          f"{worst['bilinear_sample']:.3g} (tolerance 0) at (1|4, {H}, {W}, 1), "
+          f"(10, {H}, {W}, 2), (20, {H}, {W}, 1) and (2, 72, 136, 5), realistic + "
+          f"adversarial maps, strict_edge True/False; warp_mesh vs plain: max abs "
+          f"{worst['warp_mesh']:.3g} (tolerance 0) on the output, mask and maps at "
+          f"S=1/4 (frame read in place from the stack), S=2 channels-last stack, "
+          f"289x515, zoomed out and with negated cells (black shares {shares})")
     return worst
 
 
@@ -395,8 +464,9 @@ def phase_path(clips: np.ndarray, dev):
     engine = StreamEngine(model, cfg, refine=refine, device=dev)
     driver = StreamDriver(engine, DeployOptions(refine=refine, device_gray=True))
 
-    expected = {"bilinear_sample": refine * (T - 1), "warp_uint8_cf_lowres": T - 1,
-                "warp_uint8_cf": 0, "bilinear_splat": 0, "sample_map_grad": 0}
+    expected = {"bilinear_sample": 0, "warp_mesh": refine * (T - 1),
+                "warp_uint8_cf_lowres": T - 1, "warp_uint8_cf": 0, "bilinear_splat": 0,
+                "sample_map_grad": 0}
     cuda_warp.reset_launch_counts()
     res = driver.stabilize_clip(clips[0])
     torch.cuda.synchronize()
@@ -467,25 +537,32 @@ def phase_card_vs_cpu(clips: np.ndarray, dev, T: int = 8):
 def phase_times(card: str, gen: torch.Generator, dev, engine, driver, clips,
                 grays, launches, errs):
     """Kernel, plain-version and library times at the path's shapes, and the
-    path's own time, frame rate and device busy time."""
-    from stabnet_tpu_torch.ops import cuda_warp, resize_bilinear_bhw
+    path's own time, frame rate and device busy time.  Returns the rows of
+    K2m, K1 and K3 for the kernels line, and K2's timings at S=1 and S=4."""
+    from stabnet_tpu_torch.ops import (black_mask, cuda_warp, dense_maps, mesh_tables,
+                                       resize_bilinear_bhw)
 
     bw, f32_peak = peaks(torch.cuda.get_device_name(0))
     H, W = 288, 512
     timed = {}
 
-    def record(name, label, kern, plain, lib, nbytes, ops, plain_reps=50):
+    def record(name, label, kern, plain, lib, nbytes, ops, plain_reps=50, chain=None):
         t = {"ms": device_ms(kern), "plain_ms": device_ms(plain, calls=5, reps=plain_reps),
              "library_ms": device_ms(lib) if lib else None, "call_ms": call_ms(kern)}
         t_bytes, t_ops = nbytes / bw * 1e3, ops / f32_peak * 1e3
         t["bound_ms"] = max(t_bytes, t_ops)
         t["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        extra = ""
+        if chain is not None:
+            t["chain_ms"], t["chain_call_ms"] = device_ms(chain), call_ms(chain)
+            extra = (f", the unfused chain it replaces {t['chain_ms']:.5f} ms device "
+                     f"({t['chain_call_ms']:.5f} ms per call from the host)")
         timed[(name, label)] = t
         lib_txt = "none" if lib is None else f"{t['library_ms']:.5f} ms"
         print(f"[6 times {name} {label}] {card} | kernel {t['ms']:.5f} ms device "
               f"({t['call_ms']:.5f} ms per call from the host), plain "
               f"{t['plain_ms']:.5f} ms, library {lib_txt}, bound "
-              f"{t['bound_ms'] * 1e3:.3f} us ({nbytes} B, {t['bound_by']})")
+              f"{t['bound_ms'] * 1e3:.3f} us ({nbytes} B, {t['bound_by']}){extra}")
 
     # Bytes: each input read once, each output written once.  f32 operations
     # per output pixel, counted in csrc/warp.cu: the coordinates take 24
@@ -504,6 +581,29 @@ def phase_times(card: str, gen: torch.Generator, dev, engine, driver, clips,
                lambda: F.grid_sample(im_nchw, grid, mode="bilinear",
                                      padding_mode="zeros", align_corners=False),
                4 * (3 * xm.numel() + im.numel()), (24 + 7) * xm.numel())
+    # K2m on the path's inputs: the stack's current frame, in place, and the
+    # cell homographies; beside it the chain it replaces, as the parent's
+    # `transformer` ran it after the solve.  Bytes: the frame, the output,
+    # the mask and both maps, the homographies and the four tables.  f32
+    # operations per pixel: the map 3 x 4 (2 mul, 2 add), the sign guard 2
+    # (compare, add), 2 divides, the mask's 4 compares, then K2's 24 + 7.
+    for S in (1, 4):
+        frame = stack_frame(S, H, W, gen, dev)
+        Hs = realistic_homographies(S, gen, dev)
+        tables = mesh_tables(H, W, 4, 4, dev)
+
+        def chain():
+            x_map, y_map = dense_maps(Hs, H, W)
+            return (cuda_warp.bilinear_sample(frame.contiguous(), x_map.contiguous(),
+                                              y_map.contiguous()),
+                    black_mask(x_map, y_map))
+
+        n = S * H * W
+        record("warp_mesh", f"S={S}",
+               lambda: cuda_warp.warp_mesh(frame, Hs, tables),
+               lambda: cuda_warp.warp_mesh_plain(frame, Hs, tables), None,
+               4 * (5 * n + Hs.numel() + 2 * (H + W)), (12 + 2 + 2 + 4 + 24 + 7) * n,
+               chain=chain)
     # The color warps at the serving shapes (the clip's frames at 720p, a
     # random frame at 1080p): K1 from the model-scale maps' 4x-down
     # resize, K3 from those maps up-sampled to the frame.
@@ -547,7 +647,7 @@ def phase_times(card: str, gen: torch.Generator, dev, engine, driver, clips,
     S = clips.shape[0]
     s4_fps = S * (T - 1) / (time.perf_counter() - t0)
     del warped
-    wall, wall_prof, busy, top = profile_path(engine, clips[0])
+    wall, wall_prof, busy, ops, top = profile_path(engine, clips[0])
     print(f"[6 times path] {card} | v2_93 bf16 720p: S=1 StreamDriver "
           f"{st['net']['p50_ms']:.3f} ms/frame p50 of dispatch + readback "
           f"(p95 {st['net']['p95_ms']:.3f}; dispatch p50 "
@@ -558,24 +658,29 @@ def phase_times(card: str, gen: torch.Generator, dev, engine, driver, clips,
     print(f"[6 profile S=1] {card} | wall {wall:.3f} ms/frame unprofiled "
           f"({wall_prof:.3f} under the profiler), kernels {busy:.3f} ms/frame, "
           f"device idle {100 * (1 - busy / wall):.1f}% of the unprofiled wall, "
+          f"{ops:.2f} device operations (kernels, copies, fills) per frame, "
           f"top kernels (name, ms/frame, launches/frame): {top}")
-    rows = []
-    for name, label, replaces in (
-            ("bilinear_sample", "S=1", "stabnet_tpu/ops/pallas_warp.py:469"),
-            ("warp_uint8_cf_lowres", "S=1 720p", "stabnet_tpu/ops/pallas_warp.py:575"),
-            ("warp_uint8_cf", "S=1 720p", "stabnet_tpu/ops/pallas_warp.py:524")):
-        t = timed[(name, label)]
-        others = [{"shape": lab, **{k: v for k, v in tt.items() if k != "call_ms"}}
-                  for (n, lab), tt in timed.items() if n == name and lab != label]
-        rows.append({"name": name, "route": "cuda",
-                     "source": "stabnet_tpu_torch/csrc/warp.cu", "replaces": replaces,
-                     "launches": launches[name],
-                     "max_abs_err": errs[0] if name == "bilinear_sample" else errs[1][name],
-                     "ms": t["ms"], "plain_ms": t["plain_ms"],
-                     "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                     "library_ms": t["library_ms"], "call_ms": t["call_ms"],
-                     "shape": label, "other_shapes": others})
-    return rows
+    rows = [kernel_row(name, replaces, launches[name], errs[name], timed, label)
+            for name, label, replaces in (
+                ("warp_mesh", "S=1", "stabnet_tpu/ops/pallas_warp.py:469"),
+                ("warp_uint8_cf_lowres", "S=1 720p", "stabnet_tpu/ops/pallas_warp.py:575"),
+                ("warp_uint8_cf", "S=1 720p", "stabnet_tpu/ops/pallas_warp.py:524"))]
+    return rows, {k: v for k, v in timed.items() if k[0] == "bilinear_sample"}
+
+
+def kernel_row(name, replaces, launches, err, timed, label, source="warp.cu"):
+    """One kernel's entry of the kernels line: its numbers at `label`, those
+    at its other timed shapes under "other_shapes"."""
+    t = timed[(name, label)]
+    others = [{"shape": lab, **{k: v for k, v in tt.items() if k != "call_ms"}}
+              for (n, lab), tt in timed.items() if n == name and lab != label]
+    return {"name": name, "route": "cuda", "source": f"stabnet_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"], "call_ms": t["call_ms"],
+            **{k: t[k] for k in ("chain_ms", "chain_call_ms", "passes", "flow_maps_ms")
+               if k in t},
+            "shape": label, "other_shapes": others}
 
 
 # --- the training path ------------------------------------------------------
@@ -719,7 +824,7 @@ def phase_train_path(tmp: str):
     done, segments = 0, []
     for steps, extra in ((4, []), (6, ["--restore"])):
         n = steps - done
-        expected = {"bilinear_sample": 2 * n, "warp_uint8_cf_lowres": 0,
+        expected = {"bilinear_sample": 2 * n, "warp_mesh": 0, "warp_uint8_cf_lowres": 0,
                     "warp_uint8_cf": 0, "bilinear_splat": n, "sample_map_grad": n}
         cuda_warp.reset_launch_counts()
         t0 = time.perf_counter()
@@ -953,7 +1058,7 @@ def phase_train_times(card: str, gen: torch.Generator, dev, data: str):
         t_bytes, t_ops = nbytes / bw * 1e3, ops / f32_peak * 1e3
         t["bound_ms"] = max(t_bytes, t_ops)
         t["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        timed[name, B] = t
+        timed[name, f"({B}, {H}, {W}, {C})"] = t
         print(f"[10 times {name} ({B}, {H}, {W}, {C})] {card} | kernel {t['ms']:.5f} ms "
               f"device ({t['call_ms']:.5f} ms per call from the host), plain "
               f"{t['plain_ms']:.5f} ms, library {lib_name} {t['library_ms']:.5f} ms, "
@@ -1011,32 +1116,31 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     card = phase_device()
-    errs = (phase_k2(gen, dev), phase_k1(gen, dev))
+    errs = {**phase_k2(gen, dev), **phase_k1(gen, dev)}
     clips = make_clips(4, T_CLIP, CLIP_HW)
     engine, driver, grays, launches = phase_path(clips, dev)
     phase_card_vs_cpu(clips, dev)
-    kernels = phase_times(card, gen, dev, engine, driver, clips, grays,
-                          launches, errs)
+    kernels, timed = phase_times(card, gen, dev, engine, driver, clips, grays,
+                                 launches, errs)
     del engine, driver
-    grad_errs = phase_grad_kernels(gen, dev)
+    errs.update(phase_grad_kernels(gen, dev))
     with tempfile.TemporaryDirectory() as tmp:
         train_launches, data = phase_train_path(tmp)
         phase_train_card_vs_cpu(dev)
-        timed = phase_train_times(card, gen, dev, data)
+        timed.update(phase_train_times(card, gen, dev, data))
+    # K2, K4 and K6b run on the training path: their launches are a
+    # segment's, at the shapes of the K6 forward and of the backwards.
+    kernels.insert(0, kernel_row("bilinear_sample", "stabnet_tpu/ops/pallas_warp.py:469",
+                                 train_launches["bilinear_sample"], errs["bilinear_sample"],
+                                 timed, "(20, 288, 512, 1)"))
+    for name, label, replaces in (
+            ("bilinear_splat", "(10, 288, 512, 2)", "stabnet_tpu/ops/pallas_warp.py:738"),
+            ("sample_map_grad", "(20, 288, 512, 1)", "stabnet_tpu/ops/pallas_warp.py:946")):
+        kernels.append(kernel_row(name, replaces, train_launches[name], errs[name], timed,
+                                  label, source="warp_grad.cu"))
     for row in kernels:
+        row["launches_serving"] = launches[row["name"]]
         row["launches_train"] = train_launches[row["name"]]
-    for name, B, replaces in (("bilinear_splat", 10, "stabnet_tpu/ops/pallas_warp.py:738"),
-                              ("sample_map_grad", 20, "stabnet_tpu/ops/pallas_warp.py:946")):
-        t = timed[name, B]
-        kernels.append({"name": name, "route": "cuda",
-                        "source": "stabnet_tpu_torch/csrc/warp_grad.cu",
-                        "replaces": replaces, "launches": train_launches[name],
-                        "launches_train": train_launches[name],
-                        "max_abs_err": grad_errs[name], "ms": t["ms"],
-                        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-                        "call_ms": t["call_ms"],
-                        **{k: t[k] for k in ("passes", "flow_maps_ms") if k in t}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

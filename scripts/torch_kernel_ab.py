@@ -1,17 +1,24 @@
 #!/usr/bin/env python3
-"""Time the port's color warps (K1, K3) and splat (K4) of several checkouts
+"""Time the port's warp kernels and its serving warp in several checkouts
 on one CUDA card, in turns.
 
     python3 scripts/torch_kernel_ab.py parent=<dir> change=. change=. parent=<dir>
 
 Each `label=dir` runs, in the order given, in a process of its own with
 `dir`'s `stabnet_tpu_torch` first on the path (its kernels built from its own
-csrc/), and prints one JSON line: K1 and K3 (where the checkout has it) at
-720p S=1 and S=4 and at 1080p S=1, K4 at (10, 288, 512, 2) on the mesh maps
-with each pass's device time under torch.profiler.  Times are medians of
-CUDA-graph replays (chip_smoke.device_ms).  The timing helpers come from this
-checkout's chip_smoke.py.  A last line names the card and its power limit.
-Needs CUDA; imports nothing of JAX.
+csrc/), and prints one JSON line: K2 at (1, 288, 512, 1), (10, 288, 512, 2)
+and (20, 288, 512, 1) on mesh maps; `ops.warp.transformer(U, mesh, 4, 4)`
+under inference mode at S=1 and S=4, U the current frame as a view of the
+13-channel input stack, as the serving path hands it over (device time and
+time per call from the host; whatever chain the checkout runs); the
+serving step at S=1 (v2_93 bf16, random weights, 720p): device operations
+and kernel time per frame over 10 frames (chip_smoke.profile_path); K1 and K3
+(where the checkout has it) at 720p S=1 and S=4 and at 1080p S=1; K4 at
+(10, 288, 512, 2) on the mesh maps with each pass's device time under
+torch.profiler.  Device times are medians of CUDA-graph replays
+(chip_smoke.device_ms), host times of single calls (chip_smoke.call_ms).
+The timing helpers come from this checkout's chip_smoke.py.  A last line
+names the card and its power limit.  Needs CUDA; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -39,7 +46,8 @@ def one(label: str, root: str) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
-    from stabnet_tpu_torch.ops import cuda_build, cuda_warp, resize_bilinear_bhw
+    from stabnet_tpu_torch.ops import base_mesh, cuda_build, cuda_warp, resize_bilinear_bhw
+    from stabnet_tpu_torch.ops.warp import transformer
 
     assert cuda_build.PKG_DIR.startswith(os.path.abspath(root)), cuda_build.PKG_DIR
     cs = helpers()
@@ -47,6 +55,29 @@ def one(label: str, root: str) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     res = {"label": label, "root": root}
+    H, W = 288, 512
+    for B, C in ((1, 1), (10, 2), (20, 1)):
+        im = (torch.rand((B, H, W, C), generator=gen) - 0.5).to(dev)
+        xm, ym = cs.realistic_maps(B, H, W, gen, dev)
+        res[f"K2 ({B}, {H}, {W}, {C})"] = cs.device_ms(lambda: cuda_warp.bilinear_sample(im, xm, ym))
+    for S in (1, 4):
+        U = cs.stack_frame(S, H, W, gen, dev)
+        mesh = torch.from_numpy(base_mesh(4, 4))
+        mesh = (mesh + 0.05 * torch.randn((S, 5, 5, 2), generator=gen)).to(dev)
+        with torch.inference_mode():
+            warp = lambda: transformer(U, mesh, 4, 4)
+            res[f"transformer S={S} device_ms"] = cs.device_ms(warp)
+            res[f"transformer S={S} call_ms"] = cs.call_ms(warp)
+    # The serving step at S=1 (v2_93 bf16, seeded random weights, 720p):
+    # device operations and kernel time per frame, under chip_smoke's
+    # profile (10 frames of a fresh engine: no steady wall time).
+    from stabnet_tpu_torch.config import V2_93
+    from stabnet_tpu_torch.stream import StreamEngine
+
+    engine = StreamEngine(cs.random_model(V2_93, 0), V2_93, device=dev)
+    _, _, busy, ops, _ = cs.profile_path(engine, cs.make_clips(1, 11, cs.CLIP_HW)[0], frames=10)
+    res.update({"step S=1 kernel ms": busy, "step S=1 device ops per frame": ops})
+    del engine
     for shape, S, hw in (("S=1 720p", 1, (720, 1280)), ("S=4 720p", 4, (720, 1280)),
                          ("S=1 1080p", 1, (1080, 1920))):
         imc = torch.randint(0, 256, (S, 3) + hw, generator=gen, dtype=torch.uint8).to(dev)
@@ -59,7 +90,6 @@ def one(label: str, root: str) -> dict:
             xf = resize_bilinear_bhw(xs, hw).contiguous()
             yf = resize_bilinear_bhw(ys, hw).contiguous()
             res[f"K3 {shape}"] = cs.device_ms(lambda: cuda_warp.warp_uint8_cf(imc, xf, yf))
-    H, W = 288, 512
     xm, ym = cs.realistic_maps(10, H, W, gen, dev)
     g = (torch.rand((10, H, W, 2), generator=gen) - 0.5).to(dev)
     kern = lambda: cuda_warp.bilinear_splat(g, xm, ym, (H, W))

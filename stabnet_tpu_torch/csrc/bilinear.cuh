@@ -100,6 +100,52 @@ __device__ __forceinline__ Taps clamped_taps(float x, float y, int H, int W,
   return t;
 }
 
+// The same taps with 32-bit offsets, for kernels that index within one image
+// in 32 bits (their wrappers check that every offset fits).
+struct Taps32 {
+  unsigned a, b, c, d;    // element offsets of the four taps
+  float ax, bx, ay, by;   // x1c - x, x - x0c, y1c - y, y - y0c
+};
+
+__device__ __forceinline__ Taps32 clamped_taps32(float x, float y, int H, int W,
+                                                 unsigned sx, unsigned sy,
+                                                 bool strict) {
+  const Corners k = clamped_corners(x, y, H, W, strict);
+  Taps32 t;
+  t.ax = k.ax;
+  t.bx = k.bx;
+  t.ay = k.ay;
+  t.by = k.by;
+  const unsigned ix0 = k.x0 * sx, ix1 = k.x1 * sx;
+  const unsigned iy0 = k.y0 * sy, iy1 = k.y1 * sy;
+  t.a = iy0 + ix0;
+  t.b = iy1 + ix0;
+  t.c = iy0 + ix1;
+  t.d = iy1 + ix1;
+  return t;
+}
+
+// The bilinear weights of taps a, b, c, d, rounded as the plain versions
+// round them: wa = ax*ay, wb = ax*by, wc = bx*ay, wd = bx*by.
+struct Weights {
+  float a, b, c, d;
+};
+
+__device__ __forceinline__ Weights tap_weights(const Taps32& t) {
+  return {__fmul_rn(t.ax, t.ay), __fmul_rn(t.ax, t.by),
+          __fmul_rn(t.bx, t.ay), __fmul_rn(t.bx, t.by)};
+}
+
+// One plane's sample from its taps: ((wa Ia + wb Ib) + wc Ic) + wd Id.
+__device__ __forceinline__ float sample_taps32(const float* __restrict__ plane,
+                                               const Taps32& t, const Weights& w) {
+  float v = __fmul_rn(w.a, __ldg(plane + t.a));
+  v = __fadd_rn(v, __fmul_rn(w.b, __ldg(plane + t.b)));
+  v = __fadd_rn(v, __fmul_rn(w.c, __ldg(plane + t.c)));
+  v = __fadd_rn(v, __fmul_rn(w.d, __ldg(plane + t.d)));
+  return v;
+}
+
 constexpr int kThreads = 256;
 
 inline unsigned int blocks_for(long long total) {

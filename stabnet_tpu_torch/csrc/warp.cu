@@ -1,11 +1,24 @@
-// Warp kernels of the serving path, for Hopper (sm_90a).
+// Warp kernels of the serving and training paths, for Hopper (sm_90a).
 //
-// K2  stabnet_bilinear_sample_f32
+// K2  stabnet_bilinear_sample_f32 (map mode)
 //     Replaces the JAX package's `bilinear_sample_pallas`
 //     (stabnet_tpu/ops/pallas_warp.py:469, body `_warp_band_kernel` 94-254):
 //     the f32 bilinear sampler with the reference semantics of
-//     stabnet_tpu/ops/warp.py:114-163, at model scale (S, 288, 512, 1) on the
-//     serving path, `refine` times per frame.
+//     stabnet_tpu/ops/warp.py:114-163, at given (B, Ho, Wo) NDC maps, both
+//     `strict_edge` modes.  On the training path: the forwards of K5
+//     (10, 288, 512, 2) and K6 (20, 288, 512, 1), once each per step.
+//
+// K2m stabnet_warp_mesh_f32 (mesh mode)
+//     Replaces the same sampler together with the dense maps and the black
+//     mask that feed it (stabnet_tpu/ops/warp.py:70-111, `dense_maps` and
+//     `black_mask`): the serving warp of the current frame at model scale,
+//     (S, 288, 512, 1), `refine` times per frame.  Each pixel's map value
+//     needs only its cell's 3x3 homography and its own grid coordinate, so
+//     the maps are computed in registers (on the TPU, Mosaic's in-kernel
+//     reshape rule kept them out of the kernel).  One launch writes the
+//     warped frame, the mask and both maps, which the color warp and the
+//     caller read; the frame is read in place from the 13-channel input
+//     stack at its own strides.
 //
 // K1  stabnet_warp_uint8_lowres
 //     Replaces `warp_uint8_cf_lowres` (pallas_warp.py:575-667, same body):
@@ -21,15 +34,28 @@
 //
 // What bounds them on this card: bytes, by the roofline.  Each output pixel
 // costs a few dozen flops against 4 tap reads per channel, far below the
-// compute ridge.  K2 at S=1 must move 2.36 MB (two f32 maps 1,179,648 B,
-// output 589,824 B, image >= 589,824 B); K1 at S=1, 720p must move 5.60 MB
-// (low-res maps 73,728 B, frame read 2,764,800 B, frame write 2,764,800 B):
-// 0.7 us and 1.7 us at 3.35 TB/s.  At these sizes the launch itself is of
+// compute ridge.  K2 at (20, 288, 512, 1) must move 35.4 MB (two f32 maps,
+// output, image); K2m at S=1 2.96 MB (frame, output, mask, two maps, the
+// homographies and the grid tables); K1 at S=1, 720p 5.60 MB (low-res maps
+// 73,728 B, frame read 2,764,800 B, frame write 2,764,800 B): 10.6 us,
+// 0.9 us and 1.7 us at 3.35 TB/s.  At these sizes the launch itself is of
 // the same order, so the design keeps one launch per call and no
-// intermediate in device memory:
-//   * K2: one thread per output pixel; neighbouring threads own neighbouring
-//     pixels, so map reads and output writes coalesce and the four taps of
-//     a warp land in a few cache lines of the (L2-resident) frame;
+// intermediate in device memory.  All of them share one layout: a block
+// owns 8 output rows of image blockIdx.z, a warp one row of 128 pixels, 4
+// per thread (K2m: 32, one per thread), so no thread divides by a runtime
+// size and offsets within an image are 32-bit (the wrappers check that
+// they fit):
+//   * K2 was bound by the instructions it issued: one thread per pixel with
+//     a 64-bit division, 64-bit tap offsets and a loop over the channels
+//     with stride-C stores.  Now the channels are a template argument (1 to
+//     4, and one instantiation that reads C at run time), the maps are
+//     read and the 4 * C output floats written as 16-byte accesses where
+//     aligned;
+//   * K2m reads each pixel's grid coordinate and cell from per-axis tables
+//     (W + H entries each) and its cell's homography through L1, and writes
+//     its four planes: nothing of the unfused chain (a (S, H, W, 3) product,
+//     the sign guard and divides, the mask's compares, a copy of the frame)
+//     reaches device memory, and 19 launches per refine pass become one;
 //   * K1 and K3 are in fact bound by the instructions they issue (about 200
 //     per pixel at C = 3), not by bytes.  So a block owns an 8 x 128 output
 //     tile, a thread 4 adjacent pixels of one row (12 bytes, written as three
@@ -49,9 +75,10 @@
 //     matrix products, no DMA windows that can overflow, hence no guard
 //     tiers and no fallback.
 //
-// Numerics: every product and sum is rounded separately (__fmul_rn /
-// __fadd_rn, no FMA contraction), in the order of the plain PyTorch versions
-// in stabnet_tpu_torch/ops/cuda_warp.py, so kernel and plain version agree
+// Numerics: every product, sum and quotient is rounded separately
+// (__fmul_rn / __fadd_rn / __fdiv_rn, no FMA contraction), in the order of
+// the plain PyTorch versions in stabnet_tpu_torch/ops/cuda_warp.py, so kernel
+// and plain version agree
 // bit for bit.  That matters beyond tidiness: the reference sampler is
 // discontinuous at its strict upper edge (a sample at exactly W-1 or H-1
 // gives 0) and at 0, so one ulp of difference in a coordinate there can flip
@@ -67,54 +94,145 @@
 
 #include "bilinear.cuh"
 
-using stabnet::blocks_for;
 using stabnet::kThreads;
 using stabnet::ndc_to_pixel;
 
 namespace {
 
-// Reference bilinear sample of one (batch, channel) plane at pixel
-// coordinates (x, y) (see bilinear.cuh for the tap geometry).
-template <typename T>
-__device__ __forceinline__ float sample_plane(const T* __restrict__ plane,
-                                              long long sx, long long sy,
-                                              int H, int W, float x, float y,
-                                              bool strict) {
-  const stabnet::Taps t = stabnet::clamped_taps(x, y, H, W, sx, sy, strict);
-  const float wa = __fmul_rn(t.ax, t.ay);
-  const float wb = __fmul_rn(t.ax, t.by);
-  const float wc = __fmul_rn(t.bx, t.ay);
-  const float wd = __fmul_rn(t.bx, t.by);
-  const float Ia = (float)plane[t.a];
-  const float Ib = (float)plane[t.b];
-  const float Ic = (float)plane[t.c];
-  const float Id = (float)plane[t.d];
+// The output tile of K1, K2 and K3: one warp per output row, kPix
+// horizontally adjacent pixels per thread (kTileW = 32 * kPix columns),
+// kTileH rows; one grid layer (blockIdx.z) per image.  K2m: one pixel per
+// thread, 32 columns.
+constexpr int kPix = 4;
+constexpr int kTileW = 32 * kPix;
+constexpr int kTileH = kThreads / 32;
 
-  float v = __fmul_rn(wa, Ia);
-  v = __fadd_rn(v, __fmul_rn(wb, Ib));
-  v = __fadd_rn(v, __fmul_rn(wc, Ic));
-  v = __fadd_rn(v, __fmul_rn(wd, Id));
-  return v;
+// kPix consecutive floats of a row at element p0 into v, those past the
+// row's end (at n and beyond) as copies of the last one: one 16-byte load
+// where `vec` says the kPix values lie aligned inside the row.
+__device__ __forceinline__ void load_row4(const float* __restrict__ row, int p0, int n,
+                                          bool vec, float* v) {
+  static_assert(kPix == 4, "16-byte row loads");
+  if (vec) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(row + p0));
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < kPix; ++k) v[k] = __ldg(row + p0 + min(k, n - 1));
+  }
 }
 
 // K2: im (B, H, W, C) f32, maps (B, Ho, Wo) f32 NDC -> out (B, Ho, Wo, C).
-template <bool STRICT>
-__global__ void bilinear_sample_kernel(const float* __restrict__ im,
-                                       const float* __restrict__ xm,
-                                       const float* __restrict__ ym,
-                                       float* __restrict__ out,
-                                       int H, int W, int C, int Ho, int Wo,
-                                       long long total) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const long long b = i / ((long long)Ho * Wo);
-  const float x = ndc_to_pixel(xm[i], W);
-  const float y = ndc_to_pixel(ym[i], H);
-  const float* img = im + b * (long long)H * W * C;
-  for (int c = 0; c < C; ++c) {
-    out[i * C + c] = sample_plane(img + c, (long long)C, (long long)W * C,
-                                  H, W, x, y, STRICT);
+// C is a template argument for 1 to 4 channels; CT = 0 reads it at run time
+// (any C).  `vec`: both maps are 16-byte aligned and Wo % 4 == 0, so every
+// thread's 4 map values are one aligned load each.  Offsets within one image
+// are 32-bit (the wrapper checks that they fit).
+template <int CT, bool STRICT>
+__global__ void __launch_bounds__(kThreads)
+bilinear_sample_kernel(const float* __restrict__ im, const float* __restrict__ xm,
+                       const float* __restrict__ ym, float* __restrict__ out,
+                       int H, int W, int c_rt, int Ho, int Wo, int vec) {
+  const int C = CT > 0 ? CT : c_rt;
+  const int o = blockIdx.y * kTileH + (threadIdx.x >> 5);
+  const int p0 = blockIdx.x * kTileW + (threadIdx.x & 31) * kPix;
+  const int b = blockIdx.z;
+  if (o >= Ho || p0 >= Wo) return;
+  const int n = min(kPix, Wo - p0);   // pixels of this thread inside the output
+  const size_t mrow = ((size_t)b * Ho + o) * Wo;
+  float xn[kPix], yn[kPix];
+  load_row4(xm + mrow, p0, n, vec, xn);
+  load_row4(ym + mrow, p0, n, vec, yn);
+  const float* img = im + (size_t)b * H * W * C;
+  float* dst = out + (mrow + p0) * C;
+  const unsigned sx = C, sy = (unsigned)W * C;
+
+  if constexpr (CT > 0) {
+    // Every thread computes kPix pixels, those past the right edge as
+    // copies of the last one, and stores only its n.
+    float v[kPix][CT];
+#pragma unroll
+    for (int k = 0; k < kPix; ++k) {
+      const stabnet::Taps32 t = stabnet::clamped_taps32(
+          ndc_to_pixel(xn[k], W), ndc_to_pixel(yn[k], H), H, W, sx, sy, STRICT);
+      const stabnet::Weights w = stabnet::tap_weights(t);
+#pragma unroll
+      for (int c = 0; c < CT; ++c) v[k][c] = stabnet::sample_taps32(img + c, t, w);
+    }
+    if (n == kPix && ((Wo * CT) & 3) == 0) {
+      // kPix * C floats at a 16-byte aligned offset: C 16-byte stores.
+#pragma unroll
+      for (int j = 0; j < CT; ++j) {
+        const int e = 4 * j;
+        reinterpret_cast<float4*>(dst)[j] = make_float4(
+            v[e / CT][e % CT], v[(e + 1) / CT][(e + 1) % CT],
+            v[(e + 2) / CT][(e + 2) % CT], v[(e + 3) / CT][(e + 3) % CT]);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < kPix; ++k) {
+        if (k < n) {
+#pragma unroll
+          for (int c = 0; c < CT; ++c) dst[k * CT + c] = v[k][c];
+        }
+      }
+    }
+  } else {
+    for (int k = 0; k < n; ++k) {
+      const stabnet::Taps32 t = stabnet::clamped_taps32(
+          ndc_to_pixel(xn[k], W), ndc_to_pixel(yn[k], H), H, W, sx, sy, STRICT);
+      const stabnet::Weights w = stabnet::tap_weights(t);
+      for (int c = 0; c < C; ++c) dst[k * C + c] = stabnet::sample_taps32(img + c, t, w);
+    }
   }
+}
+
+// K2m: the serving warp of the current frame in one pass.  hs (B, gh, gw,
+// 3, 3) f32 per-cell homographies; im the (B, H, W, 1) f32 frame at element
+// strides (sb, sr, sc), read in place; the NDC grid's axes gx (W) and gy (H)
+// and each column's and row's mesh cell, cell_c (W) and cell_r (H).  Writes
+// out (the strict sample), black, x and y, each (B, H, W).  Per pixel, with
+// the pixel's cell homography h: X = (h00 gx + h01 gy) + h02 (likewise Y, Z),
+// z = Z +/- 1e-8 by Z's sign, x = X / z, y = Y / z, black where (x, y)
+// leaves [-1, 1]^2, then K2's strict sample at (x, y).  One thread per
+// pixel, a warp per 32 columns of a row: at S=1 the 4-pixel layout of K2
+// leaves too few warps to hide the latency of the divides and the gathers.
+// The homographies are read through L1 (the lanes of a warp mostly share a
+// cell), not staged in shared memory: the staging's barrier cost more than
+// it saved (PERF.md, the K2m layouts).
+__global__ void __launch_bounds__(kThreads)
+warp_mesh_kernel(const float* __restrict__ hs, const float* __restrict__ im,
+                 long long sb, int sr, int sc,
+                 const float* __restrict__ gx_t, const float* __restrict__ gy_t,
+                 const int* __restrict__ cell_c, const int* __restrict__ cell_r,
+                 float* __restrict__ out, float* __restrict__ black,
+                 float* __restrict__ xo, float* __restrict__ yo,
+                 int H, int W, int ncells, int grid_w) {
+  const int o = blockIdx.y * kTileH + (threadIdx.x >> 5);
+  const int p = blockIdx.x * 32 + (threadIdx.x & 31);
+  const int b = blockIdx.z;
+  if (o >= H || p >= W) return;
+  const float* h =
+      hs + ((size_t)b * ncells + __ldg(cell_r + o) * grid_w + __ldg(cell_c + p)) * 9;
+  const float gx = __ldg(gx_t + p), gy = __ldg(gy_t + o);
+  float hh[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) hh[i] = __ldg(h + i);
+  const float X = __fadd_rn(__fadd_rn(__fmul_rn(hh[0], gx), __fmul_rn(hh[1], gy)), hh[2]);
+  const float Y = __fadd_rn(__fadd_rn(__fmul_rn(hh[3], gx), __fmul_rn(hh[4], gy)), hh[5]);
+  const float Z = __fadd_rn(__fadd_rn(__fmul_rn(hh[6], gx), __fmul_rn(hh[7], gy)), hh[8]);
+  const float z = __fadd_rn(Z, Z >= 0.0f ? 1e-8f : -1e-8f);
+  const float x = __fdiv_rn(X, z);
+  const float y = __fdiv_rn(Y, z);
+  const stabnet::Taps32 t = stabnet::clamped_taps32(
+      ndc_to_pixel(x, W), ndc_to_pixel(y, H), H, W, (unsigned)sc, (unsigned)sr, true);
+  const size_t e = ((size_t)b * H + o) * W + p;
+  out[e] = stabnet::sample_taps32(im + b * sb, t, stabnet::tap_weights(t));
+  black[e] = (x < -1.0f || x > 1.0f || y < -1.0f || y > 1.0f) ? 1.0f : 0.0f;
+  xo[e] = x;
+  yo[e] = y;
 }
 
 // Two-tap half-pixel up-sample of one low-res map at output pixel (o, p):
@@ -128,12 +246,6 @@ __device__ __forceinline__ float upsample_tap(const float* __restrict__ m, int w
                                __fmul_rn(rwh, m[rhi * w + chi]));
   return __fadd_rn(__fmul_rn(cwl, v_lo), __fmul_rn(cwh, v_hi));
 }
-
-// The color warp's output tile: one warp per output row, kPix horizontally
-// adjacent pixels per thread (kTileW = 32 * kPix columns), kTileH rows.
-constexpr int kPix = 4;
-constexpr int kTileW = 32 * kPix;
-constexpr int kTileH = kThreads / 32;
 
 // A byte as float, exactly, without the quarter-rate conversion unit:
 // 2^23 + u as float bits, minus 2^23.
@@ -314,23 +426,52 @@ int launch_warp_uint8(const void* imc, const void* xm, const void* ym,
 
 }  // namespace
 
+namespace {
+
+template <bool STRICT>
+void launch_bilinear_sample(const float* im, const float* xm, const float* ym,
+                            float* out, int B, int H, int W, int C, int Ho, int Wo,
+                            cudaStream_t s) {
+  const dim3 grid((Wo + kTileW - 1) / kTileW, (Ho + kTileH - 1) / kTileH, B);
+  const int vec = (Wo & 3) == 0 && (((uintptr_t)xm | (uintptr_t)ym) & 15) == 0;
+#define STABNET_SAMPLE(CH) \
+  bilinear_sample_kernel<CH, STRICT><<<grid, kThreads, 0, s>>>(im, xm, ym, out, H, W, C, Ho, Wo, vec)
+  switch (C) {
+    case 1: STABNET_SAMPLE(1); break;
+    case 2: STABNET_SAMPLE(2); break;
+    case 3: STABNET_SAMPLE(3); break;
+    case 4: STABNET_SAMPLE(4); break;
+    default: STABNET_SAMPLE(0); break;
+  }
+#undef STABNET_SAMPLE
+}
+
+}  // namespace
+
 extern "C" int stabnet_bilinear_sample_f32(const void* im, const void* xm,
                                            const void* ym, void* out,
                                            int B, int H, int W, int C,
                                            int Ho, int Wo, int strict_edge,
                                            void* stream) {
-  const long long total = (long long)B * Ho * Wo;
-  if (total == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (strict_edge) {
-    bilinear_sample_kernel<true><<<blocks_for(total), kThreads, 0, s>>>(
-        (const float*)im, (const float*)xm, (const float*)ym, (float*)out,
-        H, W, C, Ho, Wo, total);
-  } else {
-    bilinear_sample_kernel<false><<<blocks_for(total), kThreads, 0, s>>>(
-        (const float*)im, (const float*)xm, (const float*)ym, (float*)out,
-        H, W, C, Ho, Wo, total);
-  }
+  if ((long long)B * Ho * Wo * C == 0) return 0;
+  auto launch = strict_edge ? &launch_bilinear_sample<true> : &launch_bilinear_sample<false>;
+  launch((const float*)im, (const float*)xm, (const float*)ym, (float*)out, B, H, W, C,
+         Ho, Wo, (cudaStream_t)stream);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int stabnet_warp_mesh_f32(const void* hs, const void* im, long long sb,
+                                     int sr, int sc, const void* gx, const void* gy,
+                                     const void* cell_c, const void* cell_r,
+                                     void* out, void* black, void* xo, void* yo,
+                                     int B, int H, int W, int grid_h, int grid_w,
+                                     void* stream) {
+  if ((long long)B * H * W == 0) return 0;
+  const dim3 grid((W + 31) / 32, (H + kTileH - 1) / kTileH, B);
+  warp_mesh_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)hs, (const float*)im, sb, sr, sc, (const float*)gx, (const float*)gy,
+      (const int*)cell_c, (const int*)cell_r, (float*)out, (float*)black, (float*)xo,
+      (float*)yo, H, W, grid_h * grid_w, grid_w);
   return (int)cudaGetLastError();
 }
 

@@ -50,7 +50,9 @@ def forward(model: StabNetRegressor, x: torch.Tensor,
     """Run the regressor and warp the current frame (inference).
 
     x: (B, H, W, C_in) input stack (history masks + history frames +
-    current), on the model's device.
+    current), on the model's device.  The warp is one launch of kernel K2m
+    on CUDA (`ops.warp.transformer`): the dense maps, the black mask and
+    the sample, the current frame read in place from `x`'s last channel.
     """
     theta = model(x)
     mesh = theta_to_mesh(theta, cfg.grid_h, cfg.grid_w, cfg.do_crop_rate)
@@ -69,6 +71,8 @@ def forward_train(model: StabNetRegressor, x: torch.Tensor,
     its running statistics in place.  The current frame is data, so the
     warp needs map gradients only: `bilinear_sample_const_image` (K2
     forward, K6b backward on CUDA; the plain sampler under autograd on CPU).
+    The maps come from `dense_maps`, whose einsum carries theta's gradient;
+    serving's fused K2m carries none.
     """
     theta = model(x)
     mesh = theta_to_mesh(theta, cfg.grid_h, cfg.grid_w, cfg.do_crop_rate)

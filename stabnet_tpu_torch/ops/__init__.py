@@ -11,9 +11,11 @@ from stabnet_tpu_torch.ops.homography import (
 from stabnet_tpu_torch.ops.mesh import base_mesh, cell_pts, theta_to_mesh
 from stabnet_tpu_torch.ops.resize import resize_bilinear_bhw, resize_matrix
 from stabnet_tpu_torch.ops.warp import (
+    MeshTables,
     WarpResult,
     bilinear_sample,
     black_mask,
     dense_maps,
+    mesh_tables,
     transformer,
 )

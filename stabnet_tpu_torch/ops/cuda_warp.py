@@ -2,7 +2,10 @@
 
 K2  `bilinear_sample`      replaces stabnet_tpu/ops/pallas_warp.py:469
                            `bilinear_sample_pallas` (f32 sampler, reference
-                           semantics, `strict_edge` flag).
+                           semantics, `strict_edge` flag) at given maps.
+K2m `warp_mesh`            the same sampler with the dense maps and the
+                           black mask fused in (stabnet_tpu/ops/warp.py:70-111):
+                           the serving warp from per-cell homographies.
 K1  `warp_uint8_cf_lowres` replaces stabnet_tpu/ops/pallas_warp.py:575
                            `warp_uint8_cf_lowres` (uint8 color warp with the
                            map up-sample fused in).
@@ -53,6 +56,9 @@ def _warp_lib() -> ctypes.CDLL:
         lib.stabnet_warp_uint8_lowres.restype = _I
         lib.stabnet_warp_uint8_cf.argtypes = [_P] * 4 + [_I] * 6 + [_P]
         lib.stabnet_warp_uint8_cf.restype = _I
+        lib.stabnet_warp_mesh_f32.argtypes = ([_P] * 2 + [ctypes.c_longlong] + [_I] * 2
+                                              + [_P] * 8 + [_I] * 5 + [_P])
+        lib.stabnet_warp_mesh_f32.restype = _I
         lib._stabnet_typed = True
     return lib
 
@@ -108,6 +114,25 @@ def _check_maps(x: torch.Tensor, y: torch.Tensor, batch: int) -> None:
 def _launch_check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+_INDEX_MAX = 2 ** 31 - 1   # the kernels index within one image in 32 bits
+_GRID_MAX = 65535          # CUDA's limit on a grid's y and z extents
+_SIDE_MAX = 2 ** 22 - 2    # csrc/bilinear.cuh floors coordinates below 2^22
+
+
+def _check_index_range(name: str, sides, batch: int = 1, tiles_y: int = 1,
+                       *counts: int) -> None:
+    """Refuse sizes beyond what the kernels index: image sides (the exact
+    floor of csrc/bilinear.cuh), the elements of one image of each array in
+    `counts` (32-bit offsets), one grid layer per image and one block row
+    per tile row of the output.  Checked on every device, so the plain
+    versions take exactly what the kernels take."""
+    _require(max(sides) <= _SIDE_MAX and max(counts, default=0) <= _INDEX_MAX
+             and batch <= _GRID_MAX and tiles_y <= _GRID_MAX,
+             f"{name}: sizes beyond the kernels' 32-bit indexing (sides "
+             f"{tuple(sides)}, elements per image {max(counts, default=0)}, batch "
+             f"{batch}, tile rows {tiles_y})")
 
 
 # --- K2: f32 bilinear sampler ------------------------------------------------
@@ -179,15 +204,17 @@ def bilinear_sample(im: torch.Tensor, x_ndc: torch.Tensor, y_ndc: torch.Tensor,
     im: (B, H, W, C) float32, maps (B, Ho, Wo) float32, all contiguous.
     """
     _no_grad_inputs("bilinear_sample", im, x_ndc, y_ndc)
-    _check_index_range("bilinear_sample", im.shape[1:3])
+    _require(im.dim() == 4 and x_ndc.dim() == 3,
+             f"image must be (B, H, W, C) and maps (B, Ho, Wo), got "
+             f"{tuple(im.shape)}, {tuple(x_ndc.shape)}")
+    B, H, W, C = (int(v) for v in im.shape)
+    Ho, Wo = int(x_ndc.shape[1]), int(x_ndc.shape[2])
+    _check_index_range("bilinear_sample", (H, W), B, -(-Ho // 8), H * W * C, Ho * Wo * C)
     if _on_cpu(im, x_ndc, y_ndc):
         return bilinear_sample_plain(im, x_ndc, y_ndc, strict_edge)
     _require(im.dtype == torch.float32, f"image must be float32, got {im.dtype}")
-    _require(im.dim() == 4 and im.is_contiguous(),
-             f"image must be a contiguous (B, H, W, C), got {tuple(im.shape)}")
-    B, H, W, C = im.shape
+    _require(im.is_contiguous(), "image must be contiguous")
     _check_maps(x_ndc, y_ndc, B)
-    _, Ho, Wo = x_ndc.shape
     out = torch.empty((B, Ho, Wo, C), dtype=torch.float32, device=im.device)
     with torch.cuda.device(im.device):
         stream = torch.cuda.current_stream(im.device).cuda_stream
@@ -202,26 +229,93 @@ def bilinear_sample(im: torch.Tensor, x_ndc: torch.Tensor, y_ndc: torch.Tensor,
 bilinear_sample.launches = 0
 
 
+# --- K2m: the serving warp, maps and mask fused into the sampler --------------
+
+def warp_mesh_plain(im: torch.Tensor, Hs: torch.Tensor, tables
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Warp frames by per-cell homographies: the dense NDC maps, the black
+    mask and the strict sample, with every product, sum and quotient rounded
+    as K2m rounds it.
+
+    im: (B, H, W, 1) float32 frames (any strides); Hs: (B, grid_h, grid_w,
+    3, 3) homographies from output-cell NDC to input NDC; tables: (gx, gy,
+    cell_col, cell_row), the NDC grid's axes (W,) and (H,) float32 and each
+    output column's and row's mesh cell, (W,) and (H,) int32
+    (`ops.warp.mesh_tables`).  Per pixel, with its cell's homography h:
+    X = (h00 gx + h01 gy) + h02, likewise Y and Z; z = Z + 1e-8 where
+    Z >= 0, else Z - 1e-8; x = X / z, y = Y / z.  Returns (output (B, H, W,
+    1), black (B, H, W), x_map, y_map): the JAX package's `dense_maps`,
+    `black_mask` and `bilinear_sample` (stabnet_tpu/ops/warp.py:70-184),
+    whose einsum sums the same terms, rounded in another order.
+    """
+    gx, gy, cell_col, cell_row = tables
+    B, grid_h, grid_w = (int(v) for v in Hs.shape[:3])
+    h = Hs.float().reshape(B, grid_h, grid_w, 9)[:, cell_row.long()][:, :, cell_col.long()]
+
+    def coord(r):
+        return h[..., 3 * r] * gx + h[..., 3 * r + 1] * gy[:, None] + h[..., 3 * r + 2]
+
+    X, Y, Z = coord(0), coord(1), coord(2)
+    z = Z + torch.where(Z >= 0, 1e-8, -1e-8)
+    x, y = X / z, Y / z
+    black = ((x < -1.0) | (x > 1.0) | (y < -1.0) | (y > 1.0)).float()
+    return bilinear_sample_plain(im, x, y), black, x, y
+
+
+def warp_mesh(im: torch.Tensor, Hs: torch.Tensor, tables
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2m: `warp_mesh_plain` as one CUDA kernel (plain version on CPU).
+
+    im: (B, H, W, 1) float32 at any strides (the current frame is read in
+    place from the input stack); Hs: (B, grid_h, grid_w, 3, 3) float32
+    contiguous; tables as `warp_mesh_plain` takes them.
+    """
+    _no_grad_inputs("warp_mesh", im, Hs)
+    _require(im.dim() == 4 and im.shape[-1] == 1,
+             f"warp_mesh: frames must be (B, H, W, 1), got {tuple(im.shape)}")
+    B, H, W = (int(v) for v in im.shape[:3])
+    _require(Hs.dim() == 5 and Hs.shape[0] == B and tuple(Hs.shape[3:]) == (3, 3),
+             f"warp_mesh: homographies must be (B, grid_h, grid_w, 3, 3) of the "
+             f"frames' batch {B}, got {tuple(Hs.shape)}")
+    grid_h, grid_w = int(Hs.shape[1]), int(Hs.shape[2])
+    _require(1 <= grid_h <= H and 1 <= grid_w <= W,
+             f"warp_mesh: a {grid_h} x {grid_w} mesh on {H} x {W} frames (no more "
+             f"cells than pixels along a side)")
+    frame_span = (H - 1) * im.stride(1) + (W - 1) * im.stride(2) + 1
+    _check_index_range("warp_mesh", (H, W), B, -(-H // 8), H * W, frame_span)
+    if _on_cpu(im, Hs, *tables):
+        return warp_mesh_plain(im, Hs, tables)
+    _require(im.dtype == torch.float32 and Hs.dtype == torch.float32,
+             f"warp_mesh: frames and homographies must be float32, got {im.dtype}, "
+             f"{Hs.dtype}")
+    _require(Hs.is_contiguous(), "warp_mesh: homographies must be contiguous")
+    gx, gy, cell_col, cell_row = tables
+    for t, n, dtype in ((gx, W, torch.float32), (gy, H, torch.float32),
+                        (cell_col, W, torch.int32), (cell_row, H, torch.int32)):
+        _require(tuple(t.shape) == (n,) and t.dtype == dtype and t.is_contiguous(),
+                 f"warp_mesh: bad table {tuple(t.shape)} {t.dtype} for {H} x {W} frames")
+    dev = im.device
+    # A side of one pixel never moves an offset: its stride may be anything.
+    strides = [im.stride(d) if im.shape[d] > 1 else 0 for d in (1, 2)]
+    out = torch.empty((B, H, W, 1), dtype=torch.float32, device=dev)
+    black, x_map, y_map = (torch.empty((B, H, W), dtype=torch.float32, device=dev)
+                           for _ in range(3))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _warp_lib().stabnet_warp_mesh_f32(
+            Hs.data_ptr(), im.data_ptr(), im.stride(0), *strides,
+            gx.data_ptr(), gy.data_ptr(), cell_col.data_ptr(), cell_row.data_ptr(),
+            out.data_ptr(), black.data_ptr(), x_map.data_ptr(), y_map.data_ptr(),
+            B, H, W, grid_h, grid_w, stream)
+    _launch_check(err, "warp_mesh")
+    warp_mesh.launches += 1
+    return out, black, x_map, y_map
+
+
+warp_mesh.launches = 0
+
+
 # --- K1 and K3: the uint8 color warp ------------------------------------------
-
-_INDEX_MAX = 2 ** 31 - 1   # the kernels index within one image in 32 bits
-_GRID_MAX = 65535          # CUDA's limit on a grid's y and z extents
-_SIDE_MAX = 2 ** 22 - 2    # csrc/bilinear.cuh floors coordinates below 2^22
-
-
-def _check_index_range(name: str, sides, batch: int = 1, tiles_y: int = 1,
-                       *counts: int) -> None:
-    """Refuse sizes beyond what the kernels index: image sides (the exact
-    floor of csrc/bilinear.cuh), the elements of one image of each array in
-    `counts` (32-bit offsets), one grid layer per image and one block row
-    per tile row of the output.  Checked on every device, so the plain
-    versions take exactly what the kernels take."""
-    _require(max(sides) <= _SIDE_MAX and max(counts, default=0) <= _INDEX_MAX
-             and batch <= _GRID_MAX and tiles_y <= _GRID_MAX,
-             f"{name}: sizes beyond the kernels' 32-bit indexing (sides "
-             f"{tuple(sides)}, elements per image {max(counts, default=0)}, batch "
-             f"{batch}, tile rows {tiles_y})")
-
 
 def _check_frames(name: str, imc: torch.Tensor, out_hw: Tuple[int, int]):
     """(B, C, H, W, Ho, Wo) of a color warp, with its size checks."""
@@ -554,7 +648,7 @@ def bilinear_sample_const_image(im: torch.Tensor, x_ndc: torch.Tensor,
                                    y_ndc.contiguous())
 
 
-KERNELS = (bilinear_sample, warp_uint8_cf_lowres, warp_uint8_cf, bilinear_splat,
+KERNELS = (bilinear_sample, warp_mesh, warp_uint8_cf_lowres, warp_uint8_cf, bilinear_splat,
            sample_map_grad)
 
 

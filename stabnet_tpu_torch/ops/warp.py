@@ -17,9 +17,11 @@ Numerics preserved from the reference (required for output parity):
   * black mask = 1.0 where the sample coordinate leaves [-1, 1]^2
     (spatial_transformer3.py:282-286).
 
-The sampler itself lives beside its CUDA kernel in `ops/cuda_warp.py`;
-`bilinear_sample` here is its plain version, and `transformer` goes through
-the kernel's wrapper (the plain version on CPU tensors).
+The sampler itself lives beside its CUDA kernels in `ops/cuda_warp.py`;
+`bilinear_sample` here is its plain version.  `transformer` (serving) goes
+through K2m, `cuda_warp.warp_mesh`, which computes the maps, the mask and the
+sample in one launch on CUDA tensors (its plain version on CPU tensors);
+training builds the maps with `dense_maps`, whose einsum carries gradients.
 """
 
 from __future__ import annotations
@@ -34,8 +36,8 @@ from stabnet_tpu_torch.ops import cuda_warp
 from stabnet_tpu_torch.ops import homography as hom
 from stabnet_tpu_torch.ops.cuda_warp import bilinear_sample_plain as bilinear_sample
 
-__all__ = ["WarpResult", "dense_maps", "black_mask", "bilinear_sample",
-           "transformer"]
+__all__ = ["WarpResult", "MeshTables", "mesh_tables", "dense_maps", "black_mask",
+           "bilinear_sample", "transformer"]
 
 
 class WarpResult(NamedTuple):
@@ -48,27 +50,49 @@ class WarpResult(NamedTuple):
     Hs: torch.Tensor         # (B, grid_h, grid_w, 3, 3) per-cell homographies
 
 
+def _ndc_axis(n: int) -> np.ndarray:
+    """NDC coordinates of n output pixels along one axis: (n,) float32."""
+    return np.linspace(-1.0, 1.0, n, dtype=np.float32)
+
+
+def _cell_axis(n: int, cells: int) -> np.ndarray:
+    """(n,) int32 mesh cell of each pixel along one axis: cells are
+    floor(n / cells) long and the last absorbs the remainder (reference:
+    spatial_transformer3.py:227-243)."""
+    return np.minimum(np.arange(n) // (n // cells), cells - 1).astype(np.int32)
+
+
 @functools.lru_cache(maxsize=None)
 def _ndc_grid(height: int, width: int) -> np.ndarray:
     """Homogeneous NDC coordinates of the output pixel grid: (H, W, 3)."""
-    xs = np.linspace(-1.0, 1.0, width, dtype=np.float32)
-    ys = np.linspace(-1.0, 1.0, height, dtype=np.float32)
-    x_t, y_t = np.meshgrid(xs, ys)
+    x_t, y_t = np.meshgrid(_ndc_axis(width), _ndc_axis(height))
     return np.stack([x_t, y_t, np.ones_like(x_t)], axis=-1)
 
 
 @functools.lru_cache(maxsize=None)
 def _cell_id_map(height: int, width: int, grid_h: int, grid_w: int) -> np.ndarray:
-    """(H, W) int32 mesh-cell index per output pixel.
-
-    Cells are floor(height/grid_h) tall; the last row/column of cells absorbs
-    the remainder (reference: spatial_transformer3.py:227-243).
-    """
-    gh = height // grid_h
-    gw = width // grid_w
-    rows = np.minimum(np.arange(height) // gh, grid_h - 1)
-    cols = np.minimum(np.arange(width) // gw, grid_w - 1)
+    """(H, W) int32 mesh-cell index per output pixel."""
+    rows, cols = _cell_axis(height, grid_h), _cell_axis(width, grid_w)
     return (rows[:, None] * grid_w + cols[None, :]).astype(np.int32)
+
+
+class MeshTables(NamedTuple):
+    """The per-axis tables K2m reads instead of a dense grid."""
+
+    gx: torch.Tensor        # (W,) float32 NDC x of each output column
+    gy: torch.Tensor        # (H,) float32 NDC y of each output row
+    cell_col: torch.Tensor  # (W,) int32 mesh-cell column of each output column
+    cell_row: torch.Tensor  # (H,) int32 mesh-cell row of each output row
+
+
+@functools.lru_cache(maxsize=None)
+def mesh_tables(height: int, width: int, grid_h: int, grid_w: int,
+                device: torch.device) -> MeshTables:
+    """`MeshTables` of a (grid_h, grid_w) mesh on (height, width) frames, on
+    `device`, cached: the serving warp reads them every frame."""
+    arrays = (_ndc_axis(width), _ndc_axis(height), _cell_axis(width, grid_w),
+              _cell_axis(height, grid_h))
+    return MeshTables(*(torch.from_numpy(a).to(device) for a in arrays))
 
 
 @functools.lru_cache(maxsize=None)
@@ -122,20 +146,23 @@ def transformer(U: torch.Tensor, mesh: torch.Tensor, grid_h: int,
     """Warp images by a predicted multi-grid mesh.
 
     Args:
-      U: (B, H, W, C) float32 images to warp (the current unstable frame).
+      U: (B, H, W, 1) float32 frames to warp (the current unstable frame),
+        at any strides.
       mesh: (B, grid_h+1, grid_w+1, 2) predicted mesh vertices in NDC.
 
     Returns:
-      WarpResult with the warped image (sampled by kernel K2 on CUDA), the
-      black-border mask, the dense maps and the per-cell homographies.
+      WarpResult with the warped image, the black-border mask, the dense maps
+      and the per-cell homographies.  The maps, the mask and the sample come
+      from one launch of kernel K2m on CUDA (`cuda_warp.warp_mesh`, its plain
+      version on the CPU), which reads U in place at its strides: U is the
+      current frame's channel of the input stack, one channel.  It carries
+      no gradient (training builds the warp from `dense_maps`).
 
     Reference: spatial_transformer3.py:19,218-301 `transformer`/`_transform3`.
     """
     B, H, W, _ = U.shape
     Hs = hom.mesh_to_homographies(mesh, grid_h, grid_w)
-    x_map, y_map = dense_maps(Hs, H, W)
-    black = black_mask(x_map, y_map)
-    output = cuda_warp.bilinear_sample(U.contiguous(), x_map.contiguous(),
-                                       y_map.contiguous())
+    output, black, x_map, y_map = cuda_warp.warp_mesh(
+        U, Hs, mesh_tables(H, W, grid_h, grid_w, U.device))
     return WarpResult(output=output, black_pix=black, x_map=x_map, y_map=y_map,
                       Hs=Hs)

@@ -13,7 +13,8 @@ Python loop over it.
     engine donates the state buffer for the same effect).
   * `ptr` is a host int shared by all streams (they advance in lock-step),
     so building the input stack never waits on the device.
-  * The gray warp at model scale (kernel K2) and the full-resolution color
+  * The gray warp at model scale with its dense maps and black mask
+    (kernel K2m, one launch per refine pass) and the full-resolution color
     warp with the fused map up-sample (kernel K1) run as the hand-written
     CUDA kernels of ops/cuda_warp.py on CUDA tensors, and as their plain
     versions on CPU tensors.

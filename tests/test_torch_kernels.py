@@ -4,7 +4,7 @@ On the CPU the wrappers run their plain versions; those are held here to the
 JAX package's Pallas kernels in interpret mode (exact=True), as
 tests/test_pallas_warp.py runs them, and to the XLA sampler's autodiff.
 Tolerances: K2 1e-5 absolute (f32 sampler, matrix-unit formulation vs
-gather); K1 1 uint8 LSB (rounding of coordinates that differ in the last
+gather; K2m, the serving warp, is held to JAX in tests/test_torch_warp_mesh.py); K1 1 uint8 LSB (rounding of coordinates that differ in the last
 bits: the Pallas kernel converts NDC to pixels before the map up-sample, the
 port after it); K3 0 (both sample full-resolution maps); K4 and K5 2e-6
 absolute (the same sums in another order); K6 1e-4 (derivatives of
@@ -21,6 +21,7 @@ import torch
 
 from stabnet_tpu_torch.ops import cuda_warp
 from stabnet_tpu_torch.ops.resize import resize_bilinear_bhw
+from stabnet_tpu_torch.ops.warp import mesh_tables
 
 torch.set_num_threads(1)
 
@@ -157,6 +158,8 @@ def test_cpu_tensors_never_count_a_launch():
     cuda_warp.warp_uint8_cf(imc, x, x)
     cuda_warp.bilinear_splat(im, x, x, (6, 10))
     cuda_warp.sample_map_grad(im, x, x, im)
+    cuda_warp.warp_mesh(im, torch.eye(3).expand(1, 2, 2, 3, 3).contiguous(),
+                        mesh_tables(8, 16, 2, 2, im.device))
     assert [k.launches for k in cuda_warp.KERNELS] == before
     with pytest.raises(ValueError):        # mixed devices are refused
         cuda_warp.bilinear_sample(im.to("meta"), x, x)
@@ -176,6 +179,8 @@ KERNEL_CALLS = {
     "warp_uint8_cf": lambda im, x, imc: cuda_warp.warp_uint8_cf(imc, x, x),
     "bilinear_splat": lambda im, x, imc: cuda_warp.bilinear_splat(im, x, x, (8, 16)),
     "sample_map_grad": lambda im, x, imc: cuda_warp.sample_map_grad(im, x, x, im),
+    "warp_mesh": lambda im, x, imc: cuda_warp.warp_mesh(
+        im, torch.zeros((1, 2, 2, 3, 3), device=im.device), mesh_tables(8, 16, 2, 2, im.device)),
 }
 
 
@@ -216,6 +221,19 @@ OVERSIZE_CALLS = {
         _meta(70000, 8, 16)),
     "k4 image": lambda: cuda_warp.bilinear_splat(
         _meta(1, 8, 16, 2), _meta(1, 8, 16), _meta(1, 8, 16), (40000, 40000)),
+    "k2 image": lambda: cuda_warp.bilinear_sample(
+        _meta(1, 30000, 30000, 3), _meta(1, 8, 16), _meta(1, 8, 16)),
+    "k2 output": lambda: cuda_warp.bilinear_sample(
+        _meta(1, 8, 16, 3), _meta(1, 40000, 20000), _meta(1, 40000, 20000)),
+    "k2 batch": lambda: cuda_warp.bilinear_sample(
+        _meta(70000, 8, 16, 1), _meta(70000, 8, 16), _meta(70000, 8, 16)),
+    # K2m reads the frame in place: its row stride spans past 2^31.
+    "k2m frame": lambda: cuda_warp.warp_mesh(
+        torch.empty_strided((1, 8, 16, 1), (2 ** 32, 2 ** 29, 1, 1), device="meta"),
+        _meta(1, 4, 4, 3, 3), mesh_tables(8, 16, 4, 4, torch.device("meta"))),
+    "k2m batch": lambda: cuda_warp.warp_mesh(
+        _meta(70000, 8, 16, 1), _meta(70000, 4, 4, 3, 3),
+        mesh_tables(8, 16, 4, 4, torch.device("meta"))),
     # Every kernel floors coordinates exactly only below 2^22 pixels.
     "k2 side": lambda: cuda_warp.bilinear_sample(
         _meta(1, 1, 5_000_000, 1), _meta(1, 8, 16), _meta(1, 8, 16)),
@@ -226,8 +244,8 @@ OVERSIZE_CALLS = {
 
 @pytest.mark.parametrize("case", sorted(OVERSIZE_CALLS))
 def test_wrappers_refuse_sizes_beyond_32_bit_indexing(case):
-    """K1, K3 and K4 index within one image in 32 bits and put the batch on
-    the grid's z axis, and every kernel floors coordinates with a float
+    """K1, K2, K2m, K3 and K4 index within one image in 32 bits and put the
+    batch on the grid's z axis, and every kernel floors coordinates with a float
     trick exact below 2^22 pixels; the wrappers refuse larger sizes on every
     device, before any is touched (the meta device holds no memory)."""
     with pytest.raises(ValueError, match="32-bit indexing"):
@@ -367,12 +385,42 @@ def test_kernels_match_plain_on_the_card():
     im = torch.rand((2, 72, 136, 1), generator=gen).to(dev)
     x = (torch.rand((2, 72, 136), generator=gen) * 2.4 - 1.2).to(dev)
     y = (torch.rand((2, 72, 136), generator=gen) * 2.4 - 1.2).to(dev)
-    for strict in (True, False):
-        before = cuda_warp.bilinear_sample.launches
-        got = cuda_warp.bilinear_sample(im, x, y, strict_edge=strict)
-        assert cuda_warp.bilinear_sample.launches == before + 1
-        want = cuda_warp.bilinear_sample_plain(im, x, y, strict_edge=strict)
-        assert float((got - want).abs().max()) <= 1e-5
+    # K2 at 1 to 4 channels and at 5 (channels read at run time), maps of a
+    # width that is a multiple of 4 (16-byte loads and stores) and not, and
+    # maps at an offset that breaks their 16-byte alignment.
+    for C in (1, 2, 3, 4, 5):
+        img = torch.rand((3, 61, 97, C), generator=gen).to(dev)
+        xw, yw = ((torch.rand((2, 72, 137), generator=gen) * 2.4 - 1.2).to(dev)
+                  for _ in range(2))
+        xf, yf = ((torch.rand((1 + 2 * 72 * 136,), generator=gen) * 2.4 - 1.2).to(dev)
+                  for _ in range(2))
+        for xm, ym in ((xw[..., :136].contiguous(), yw[..., :136].contiguous()), (xw, yw),
+                       (xf[1:].view(2, 72, 136), yf[1:].view(2, 72, 136))):
+            for strict in (True, False):
+                before = cuda_warp.bilinear_sample.launches
+                got = cuda_warp.bilinear_sample(img[:2].contiguous(), xm, ym, strict_edge=strict)
+                assert cuda_warp.bilinear_sample.launches == before + 1
+                want = cuda_warp.bilinear_sample_plain(img[:2], xm, ym, strict_edge=strict)
+                assert torch.equal(got, want)
+    # K2m: the frame read in place from a 13-channel stack and copied out,
+    # meshes mild and zoomed out, a size that is not a multiple of 4 or of
+    # the mesh, and a mesh whose homographies give Z <= 0 somewhere.
+    from stabnet_tpu_torch.ops import base_mesh, mesh_to_homographies
+
+    for (H, W), zoom, flip in (((72, 136), 1.0, False), ((75, 131), 1.2, False),
+                               ((72, 136), 1.0, True)):
+        mesh = torch.from_numpy(base_mesh(4, 4)) * zoom
+        mesh = (mesh + 0.1 * torch.randn((2, 5, 5, 2), generator=gen)).to(dev)
+        Hs = mesh_to_homographies(mesh, 4, 4)
+        if flip:
+            Hs[:, 1:3, 1:3, 2] *= -1.0     # Z < 0 in the middle cells
+        stack = torch.rand((2, 13, H, W), generator=gen).to(dev).permute(0, 2, 3, 1)
+        for frame in (stack[..., 12:13], stack[..., 12:13].contiguous()):
+            before = cuda_warp.warp_mesh.launches
+            got = cuda_warp.warp_mesh(frame, Hs, mesh_tables(H, W, 4, 4, dev))
+            assert cuda_warp.warp_mesh.launches == before + 1
+            want = cuda_warp.warp_mesh_plain(frame, Hs, mesh_tables(H, W, 4, 4, dev))
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
     imc = torch.randint(0, 256, (2, 3, 181, 243), generator=gen,
                         dtype=torch.uint8).to(dev)
     xs = resize_bilinear_bhw(x, (18, 34)).contiguous()
