@@ -41,7 +41,24 @@ nonzero exit):
      each segment;
   9. one v2_93 training step, card against CPU, f32 (TF32 off), batch 2;
  10. training times: K4 (with each pass's time under torch.profiler) and
-     K6b at their training shapes, and the step.
+     K6b at their training shapes, and the step;
+ 11. TV-L1 flow: K2 in its edge-inclusive mode against its plain version,
+     bit for bit, at the pyramid of the training shape, (10, 288, 512, 3)
+     down to (10, 32, 64, 3), and at the metrics' pyramid, (32, 144, 256,
+     3) down to (32, 16, 32, 3), on clipped flow maps, and its times; one
+     tvl1_flow call at (10, 288, 512), fine_iters 40, with its launches
+     (20 of K2), time and device operations; card against CPU at
+     (2, 96, 128), bit for bit; a translation recovered on the card;
+ 12. quality metrics: the S=1 driver keeping its input grays on the
+     40-frame 720p clip, then score_stabilized_clip at 144x256 (launches,
+     seconds per clip, every score in (0, 1]); evaluate_clip card against
+     CPU on the driver's first 12 frames at 144x256, and where the devices
+     part: the flow of those frames and the phase correlation bit for bit,
+     the fit, the spectrum and the singular values on equal inputs;
+ 13. flow-fed training: phase 8's shards with the flow field stripped,
+     `train` refused on them, then `train --compute-flow` through the CLI
+     at v2_93 bf16 batch 10 for 4 steps with the temporal loss live, its
+     launches and time per iteration beside phase 10's.
 The line before the last is a JSON object with every kernel's numbers; the
 last line is {"ok": true, "device": {...}}.  Needs CUDA and the repository
 beside it; imports nothing of JAX.
@@ -1106,7 +1123,306 @@ def phase_train_times(card: str, gen: torch.Generator, dev, data: str):
           f"({wall_prof:.3f} under the profiler), kernels {busy:.3f} ms/step, device "
           f"idle {100 * (1 - busy / wall):.1f}% of the unprofiled wall, top kernels "
           f"(name, ms/step, launches/step): {top}")
-    return timed
+    return timed, window_s * 1e3 / 10
+
+
+# --- flow and metrics -------------------------------------------------------
+
+# The shapes K2 samples at in one tvl1_flow call on a training batch: the
+# pyramid of (10, 288, 512), three channels (the image and its gradient).
+FLOW_SHAPES = ((10, 288, 512), (10, 144, 256), (10, 72, 128), (10, 32, 64))
+# The same in the metrics' calls: 32 pairs at the evaluation scale, 144x256.
+METRICS_FLOW_SHAPES = ((32, 144, 256), (32, 72, 128), (32, 32, 64), (32, 16, 32))
+
+
+def flow_sample_maps(B: int, H: int, W: int, gen: torch.Generator, device,
+                     amp: float = 6.0):
+    """The NDC maps `ops.flow._warp_fields` hands K2: the pixel grid
+    displaced by a smooth random field of up to `amp` pixels, clipped to
+    [0, size - 1 - 1e-3], then 2 x / size - 1."""
+    from stabnet_tpu_torch.ops import resize_bilinear_bhw
+
+    d = amp * (2 * torch.rand((2, B, 5, 9), generator=gen) - 1)
+    dx, dy = (resize_bilinear_bhw(v, (H, W)) for v in d)
+    x = (torch.arange(W, dtype=torch.float32) + dx).clamp(0.0, W - 1.0 - 1e-3)
+    y = (torch.arange(H, dtype=torch.float32)[:, None] + dy).clamp(0.0, H - 1.0 - 1e-3)
+    return ((2.0 * x / W - 1.0).to(device), (2.0 * y / H - 1.0).to(device))
+
+
+def smooth_pair(rng: np.random.RandomState, H: int, W: int, dx: float, dy: float):
+    """A smooth random image in [0, 1] and its copy translated by (dx, dy)
+    (bilinear, edges replicated): i0(p) = i1(p + (dx, dy)) inside."""
+    img = rng.rand(H, W).astype(np.float32)
+    for _ in range(5):
+        img = (img + np.roll(img, 1, 0) + np.roll(img, -1, 0)
+               + np.roll(img, 1, 1) + np.roll(img, -1, 1)) / 5.0
+    img = (img - img.min()) / (img.max() - img.min())
+    ys, xs = np.mgrid[0:H, 0:W].astype(np.float64)
+    sy, sx = np.clip(ys - dy, 0, H - 1), np.clip(xs - dx, 0, W - 1)
+    y0 = np.minimum(np.floor(sy).astype(int), H - 2)
+    x0 = np.minimum(np.floor(sx).astype(int), W - 2)
+    fy, fx = sy - y0, sx - x0
+    moved = (img[y0, x0] * (1 - fy) * (1 - fx) + img[y0, x0 + 1] * (1 - fy) * fx
+             + img[y0 + 1, x0] * fy * (1 - fx) + img[y0 + 1, x0 + 1] * fy * fx)
+    return img, moved.astype(np.float32)
+
+
+def device_ops(fn):
+    """One call of `fn` under torch.profiler (CUDA activity): the device
+    operations (kernels, copies, fills) it ran and their summed time, ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.count for e in events),
+            sum(e.self_device_time_total for e in events) / 1e3)
+
+
+def phase_flow(card: str, gen: torch.Generator, dev, clips: np.ndarray):
+    """K2 in its edge-inclusive mode against its plain version at the flow's
+    shapes, bit for bit; one tvl1_flow call at the training shape (launches,
+    time, device operations); card against CPU, bit for bit; a translation
+    recovered."""
+    from stabnet_tpu_torch.ops import cuda_warp
+    from stabnet_tpu_torch.ops.flow import tvl1_flow
+    from stabnet_tpu_torch.stream.engine import gray_from_color
+
+    bw, f32_peak = peaks(torch.cuda.get_device_name(0))
+    worst = 0.0
+    for B, H, W in FLOW_SHAPES + METRICS_FLOW_SHAPES:
+        fields = (torch.rand((B, H, W, 3), generator=gen) * 255).to(dev)
+        xm, ym = flow_sample_maps(B, H, W, gen, dev)
+        got = cuda_warp.bilinear_sample(fields, xm, ym, strict_edge=False)
+        want = cuda_warp.bilinear_sample_plain(fields, xm, ym, strict_edge=False)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        check(torch.equal(got, want), f"K2 edge-inclusive ({B}, {H}, {W}, 3): max abs {err}")
+
+    # K2 at the finest level's shape: the kernel, its plain version, the
+    # library's grid sampler (border padding, the edge-inclusive analogue).
+    B, H, W = FLOW_SHAPES[0]
+    fields = (torch.rand((B, H, W, 3), generator=gen) * 255).to(dev)
+    xm, ym = flow_sample_maps(B, H, W, gen, dev)
+    grid = torch.stack([xm + 1.0 / W, ym + 1.0 / H], dim=-1)
+    f_nchw = fields.permute(0, 3, 1, 2).contiguous()
+    n = xm.numel()
+    nbytes, ops = 4 * (2 * n + fields.numel() + 3 * n), (24 + 7 * 3) * n
+    t = {"ms": device_ms(lambda: cuda_warp.bilinear_sample(fields, xm, ym, strict_edge=False)),
+         "plain_ms": device_ms(lambda: cuda_warp.bilinear_sample_plain(
+             fields, xm, ym, strict_edge=False), calls=5),
+         "library_ms": device_ms(lambda: F.grid_sample(
+             f_nchw, grid, mode="bilinear", padding_mode="border", align_corners=False)),
+         "call_ms": call_ms(lambda: cuda_warp.bilinear_sample(fields, xm, ym,
+                                                               strict_edge=False))}
+    t_bytes, t_ops = nbytes / bw * 1e3, ops / f32_peak * 1e3
+    t["bound_ms"] = max(t_bytes, t_ops)
+    t["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    label = f"({B}, {H}, {W}, 3) edge-inclusive"
+    print(f"[11 K2 flow] {card} | bilinear_sample strict_edge=False vs plain on the "
+          f"card: max abs {worst:.3g} (tolerance 0) at "
+          f"{list(FLOW_SHAPES + METRICS_FLOW_SHAPES)} x 3 channels, "
+          f"clipped flow maps; at {label}: kernel {t['ms']:.5f} ms device "
+          f"({t['call_ms']:.5f} ms per call from the host), plain {t['plain_ms']:.5f} ms, "
+          f"library F.grid_sample (border) {t['library_ms']:.5f} ms, bound "
+          f"{t['bound_ms'] * 1e3:.3f} us ({nbytes} B, {t['bound_by']})")
+
+    # tvl1_flow at the training shape on consecutive frames of the clip.
+    color = torch.from_numpy(clips[0, :B + 1]).to(dev).permute(0, 3, 1, 2)
+    gray = gray_from_color(color, (H, W))
+    i0, i1 = gray[:-1].contiguous(), gray[1:].contiguous()
+    u = tvl1_flow(i0, i1)
+    torch.cuda.synchronize()
+    cuda_warp.reset_launch_counts()
+    u = tvl1_flow(i0, i1)
+    torch.cuda.synchronize()
+    per_call = launch_counts()
+    expected = {k: 0 for k in per_call} | {"bilinear_sample": 20}
+    check(per_call == expected, f"tvl1_flow launches {per_call}, expected {expected}")
+    check(tuple(u.shape) == (B, H, W, 2) and bool(torch.isfinite(u).all()),
+          f"tvl1_flow output {tuple(u.shape)}, finite {bool(torch.isfinite(u).all())}")
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tvl1_flow(i0, i1)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    n_ops, busy = device_ops(lambda: tvl1_flow(i0, i1))
+    flow_ms = float(np.median(walls))
+    print(f"[11 flow] {card} | tvl1_flow ({B}, {H}, {W}), fine_iters 40 (1,700 "
+          f"primal-dual iterations): launches per call {per_call}; {flow_ms:.3f} ms per "
+          f"call (median of 3, synchronized; {[round(w, 3) for w in walls]}); "
+          f"{n_ops} device operations per call, kernels {busy:.3f} ms, device idle "
+          f"{100 * (1 - busy / flow_ms):.1f}% of the wall")
+
+    # Card against CPU in f32, two translated smooth pairs at (2, 96, 128).
+    rng = np.random.RandomState(3)
+    pairs = [smooth_pair(rng, 96, 128, 3.6, -2.3), smooth_pair(rng, 96, 128, -1.2, 0.7)]
+    a = torch.from_numpy(np.stack([p[0] for p in pairs]))
+    b = torch.from_numpy(np.stack([p[1] for p in pairs]))
+    card_u = tvl1_flow(a.to(dev), b.to(dev)).cpu()
+    cpu_u = tvl1_flow(a, b)
+    d = (card_u - cpu_u).abs()
+    inner = card_u[0, 16:-16, 16:-16]
+    tx, ty = float(inner[..., 0].mean()), float(inner[..., 1].mean())
+    print(f"[11 flow card vs cpu] tvl1_flow (2, 96, 128), default iterations: max abs "
+          f"{float(d.max()):.3g} px, mean abs {float(d.mean()):.3g} px (need 0: every "
+          f"operation correctly rounded on both devices); translation (3.6, -2.3) "
+          f"recovered as ({tx:.4f}, {ty:.4f}) on the card (need within 0.2 px)")
+    check(torch.equal(card_u, cpu_u), "flow: card and CPU disagree")
+    check(abs(tx - 3.6) < 0.2 and abs(ty + 2.3) < 0.2, "flow: translation not recovered")
+    return worst, t, per_call
+
+
+def phase_metrics(card: str, dev, engine, clips: np.ndarray):
+    """The S=1 driver with the input grays kept, then the clip's quality
+    record at the evaluation scale; evaluate_clip card against CPU on the
+    driver's output, and where the two devices part."""
+    from stabnet_tpu_torch.eval import evaluate_clip, score_stabilized_clip
+    from stabnet_tpu_torch.eval.metrics import (
+        _EVAL_CHUNK, _FINE_ITERS, _eval_downscale, _eval_grays, _global_shift,
+        _grid_correspondences, cropping_score, distortion_score, fit_homographies,
+        stability_score)
+    from stabnet_tpu_torch.ops import cuda_warp
+    from stabnet_tpu_torch.ops.flow import tvl1_flow
+    from stabnet_tpu_torch.stream import DeployOptions, StreamDriver
+
+    cfg = engine.cfg
+    T = clips.shape[1]
+    driver = StreamDriver(engine, DeployOptions(device_gray=True, collect_input_gray=True))
+    chunks = lambda n: -(-n // _EVAL_CHUNK)
+    flows = 2 * chunks(T - 1) + chunks(T)   # output and input stability, cross-video
+    expected = {"bilinear_sample": 20 * flows, "warp_mesh": T - 1,
+                "warp_uint8_cf_lowres": T - 1, "warp_uint8_cf": 0, "bilinear_splat": 0,
+                "sample_map_grad": 0}
+    cuda_warp.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = driver.stabilize_clip(clips[0])
+    t1 = time.perf_counter()
+    scores = score_stabilized_clip(res.frames, res.input_gray, (cfg.height, cfg.width),
+                                   crop_rect=res.crop_rect, device=dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = launch_counts()
+    check(launches == expected, f"metrics launches {launches}, expected {expected}")
+    check(res.input_gray.shape == (T, cfg.height, cfg.width),
+          f"input grays {res.input_gray.shape}")
+    check(all(math.isfinite(v) and 0.0 < v <= 1.0 + 1e-6 for v in scores.values()),
+          f"scores {scores}")
+    ds = _eval_downscale(cfg.height, cfg.width)
+    print(f"[12 metrics] {card} | {cfg.name} {cfg.compute_dtype} {clips.shape[2]}x"
+          f"{clips.shape[3]} T={T}: S=1 StreamDriver with the input grays kept "
+          f"{t1 - t0:.3f} s, score_stabilized_clip at {cfg.height // ds}x{cfg.width // ds} "
+          f"{t2 - t1:.3f} s ({flows} tvl1_flow calls of {_EVAL_CHUNK} pairs, fine_iters "
+          f"100), {t2 - t0:.3f} s per clip; launches {launches}; scores "
+          f"{ {k: round(v, 6) for k, v in scores.items()} }")
+
+    # evaluate_clip card against CPU in f32 on the driver's own output at the
+    # evaluation scale: its first 12 frames (one 32-pair chunk per flow pass)
+    # and their input grays, made once on the card.  Then where the devices
+    # part: the flow of consecutive output frames and the phase correlation
+    # must be equal; the fit, the spectrum and the singular values on equal
+    # inputs need not be (LAPACK against cuSOLVER, pocketfft against cuFFT).
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    K = 12
+    out_g, in_g, _ = _eval_grays(res.frames[:K], res.input_gray[:K],
+                                 (cfg.height, cfg.width), dev)
+    top, left, bot, right = res.crop_rect
+    rect = (top // ds, left // ds, bot // ds, right // ds)
+    t0 = time.perf_counter()
+    on_card = evaluate_clip(out_g, in_g, rect=rect, device=dev)
+    t1 = time.perf_counter()
+    on_cpu = evaluate_clip(out_g.cpu(), in_g.cpu(), rect=rect, device="cpu")
+    t2 = time.perf_counter()
+    gaps = {k: abs(on_card[k] - on_cpu[k]) for k in on_cpu}
+    a, b = out_g[:-1], out_g[1:]
+    u = tvl1_flow(a, b, fine_iters=_FINE_ITERS)
+    u_cpu = tvl1_flow(a.cpu(), b.cpu(), fine_iters=_FINE_ITERS)
+    shift, shift_cpu = _global_shift(a, b), _global_shift(a.cpu(), b.cpu())
+    src, dst = _grid_correspondences(u)
+    Hs = fit_homographies(src, dst)
+    Hs_cpu = fit_homographies(src.cpu(), dst.cpu())
+    fit_gap = float((Hs.cpu() - Hs_cpu).abs().max() / Hs_cpu.abs().max())
+    op_gaps = {name: abs(float(fn(Hs)) - float(fn(Hs.cpu())))
+               for name, fn in (("stability_score", stability_score),
+                                ("distortion_score", distortion_score),
+                                ("cropping_score", cropping_score))}
+    torch.backends.cudnn.allow_tf32 = True
+    flow_gap = float((u.cpu() - u_cpu).abs().max())
+    print(f"[12 metrics card vs cpu] evaluate_clip on the driver's frames 0-{K - 1} at "
+          f"{out_g.shape[1]}x{out_g.shape[2]}, rect {rect}: card "
+          f"{ {k: round(v, 7) for k, v in on_card.items()} } in {t1 - t0:.3f} s, cpu "
+          f"{ {k: round(v, 7) for k, v in on_cpu.items()} } in {t2 - t1:.3f} s, worst gap "
+          f"{max(gaps.values()):.3g} (need <= 1e-6). Where the devices part: tvl1_flow "
+          f"{tuple(u.shape)} fine_iters {_FINE_ITERS} max abs {flow_gap:.3g} (need 0), "
+          f"_global_shift equal {all(map(torch.equal, (s.cpu() for s in shift), shift_cpu))} "
+          f"(need True); on equal inputs fit_homographies max rel {fit_gap:.3g}, "
+          f"{ {k: float(f'{v:.3g}') for k, v in op_gaps.items()} }")
+    check(flow_gap == 0.0, "metrics: the flow differs between card and CPU")
+    check(all(map(torch.equal, (s.cpu() for s in shift), shift_cpu)),
+          "metrics: the phase correlation differs between card and CPU")
+    check(max(gaps.values()) <= 1e-6, "metrics: card and CPU disagree")
+
+
+def phase_flow_train(card: str, tmp: str, data: str, flowless_iter_ms: float):
+    """Phase 8's make-synthetic shards with the flow field stripped, then
+    `train --compute-flow` through the CLI at v2_93 bf16 batch 10 for 4
+    steps, the temporal loss fed by the flow from step 0."""
+    from stabnet_tpu_torch.cli.main import main as cli
+    from stabnet_tpu_torch.data import records
+    from stabnet_tpu_torch.ops import cuda_warp
+
+    examples = []
+    for shard in records.list_shards(os.path.join(data, "train")):
+        arrays = records.read_shard(shard)
+        examples += [{k: v[i] for k, v in arrays.items() if k != "flow"}
+                     for i in range(len(arrays["stable"]))]
+    flowless = os.path.join(tmp, "flowless")
+    records.write_shards(os.path.join(flowless, "train"), examples)
+    log_dir = os.path.join(tmp, "flow_log")
+    base = ["train", "--config", "v2_93", "--data", flowless, "--model-dir",
+            os.path.join(tmp, "flow_models"), "--log-dir", log_dir, "--seed", "0",
+            "--set", "disp_freq=1", *TRAIN_LIVE, "--steps", "4"]
+    try:
+        cli(base)
+        raise AssertionError("train on flowless shards without --compute-flow ran")
+    except ValueError as e:
+        check("--compute-flow" in str(e), f"refusal without --compute-flow: {e}")
+    cuda_warp.reset_launch_counts()
+    t0 = time.perf_counter()
+    cli(base + ["--compute-flow"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    # Each step launches K2 twice (the K5 and K6 forwards), each batch the
+    # pipeline made (the 4 steps', and up to 3 more it had in hand or queued
+    # when it was closed) 20 times in its flow.
+    batches = (launches["bilinear_sample"] - 2 * 4) / 20
+    rest = {k: v for k, v in launches.items() if k != "bilinear_sample"}
+    check(batches == int(batches) and 4 <= batches <= 7
+          and rest == {"warp_mesh": 0, "warp_uint8_cf_lowres": 0, "warp_uint8_cf": 0,
+                       "bilinear_splat": 4, "sample_map_grad": 4},
+          f"train --compute-flow launches {launches}")
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        rows = [r for r in map(json.loads, f) if r["tag"] == "train"]
+    check([r["step"] for r in rows] == [0, 1, 2, 3], f"steps {[r['step'] for r in rows]}")
+    check(all(math.isfinite(r["total"]) and r["temp"] > 0 for r in rows),
+          f"losses {[(r['total'], r['temp']) for r in rows]}")
+    iter_ms = float(np.mean([r["data_ms"] + r["step_ms"] for r in rows[1:]]))
+    print(f"[13 flow train] {card} | train --compute-flow, v2_93 bf16 batch 10, 4 steps "
+          f"through the CLI in {seconds:.1f} s (refused without --compute-flow): launches "
+          f"{launches} (K2: 2 per step + 20 per tvl1_flow, {int(batches)} batches made); "
+          f"temporal loss live (step 0 temp {rows[0]['temp']:.6g}, total "
+          f"{rows[0]['total']:.6g}); {iter_ms:.3f} ms per synchronized iteration (data wait "
+          f"+ step, steps 1-3; data {[round(r['data_ms'], 3) for r in rows[1:]]}) against "
+          f"{flowless_iter_ms:.3f} ms with record flow (phase 10)")
+    return launches, iter_ms
 
 
 def main() -> int:
@@ -1122,12 +1438,18 @@ def main() -> int:
     phase_card_vs_cpu(clips, dev)
     kernels, timed = phase_times(card, gen, dev, engine, driver, clips, grays,
                                  launches, errs)
+    flow_err, flow_timed, flow_launches = phase_flow(card, gen, dev, clips)
+    errs["bilinear_sample"] = max(errs["bilinear_sample"], flow_err)
+    timed[("bilinear_sample", "(10, 288, 512, 3) edge-inclusive")] = flow_timed
+    phase_metrics(card, dev, engine, clips)
     del engine, driver
     errs.update(phase_grad_kernels(gen, dev))
     with tempfile.TemporaryDirectory() as tmp:
         train_launches, data = phase_train_path(tmp)
         phase_train_card_vs_cpu(dev)
-        timed.update(phase_train_times(card, gen, dev, data))
+        train_timed, flowless_iter_ms = phase_train_times(card, gen, dev, data)
+        timed.update(train_timed)
+        phase_flow_train(card, tmp, data, flowless_iter_ms)
     # K2, K4 and K6b run on the training path: their launches are a
     # segment's, at the shapes of the K6 forward and of the backwards.
     kernels.insert(0, kernel_row("bilinear_sample", "stabnet_tpu/ops/pallas_warp.py:469",
@@ -1141,6 +1463,7 @@ def main() -> int:
     for row in kernels:
         row["launches_serving"] = launches[row["name"]]
         row["launches_train"] = train_launches[row["name"]]
+        row["launches_flow"] = flow_launches[row["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,15 +4,22 @@ Usage:
   python -m stabnet_tpu_torch.cli.main stabilize --config v2_93 \
       --test-list data_video/test_list --prefix data_video \
       --output-dir out [--weights weights.npz] [--refine N] \
-      [--output-size H W] [--device-gray] [--device cuda|cpu]
+      [--output-size H W] [--device-gray] [--metrics] [--device cuda|cpu]
   python -m stabnet_tpu_torch.cli.main make-synthetic --out data/train \
       --num 256 [--config tiny] [--seed 0]
   python -m stabnet_tpu_torch.cli.main train --config v2_93 --data data/ \
       [--model-dir DIR] [--log-dir DIR] [--restore] [--steps N] \
-      [--set key=value ...] [--seed 0] [--tensorboard] [--device cuda|cpu]
+      [--set key=value ...] [--seed 0] [--tensorboard] [--compute-flow] \
+      [--device cuda|cpu]
+  python -m stabnet_tpu_torch.cli.main evaluate --output out.avi \
+      [--input in.avi] [--config v2_93] [--max-frames 120] [--device cuda|cpu]
 
 `train` reads record shards from `<data>/train` and, if it exists,
-`<data>/test` (reference: train_bundle_nobm.py:34-37).
+`<data>/test` (reference: train_bundle_nobm.py:34-37); `--compute-flow`
+estimates the temporal loss's flow on the device (TV-L1), which shards
+without a flow field need.  `stabilize --metrics` prints one JSON line of
+quality scores per clip; `evaluate` prints the stability (and, with
+`--input`, cropping and distortion) scores of a stabilized video.
 
 For each video name in the list file(s), reads `<prefix>/unstable/<name>` and
 writes `<output-dir>/output/<name>.avi` and `<name>_cut.avi` (reference:
@@ -24,8 +31,12 @@ weights with the theta head scaled by 0.05.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
+
+DEVICE_HELP = ("torch device (default cuda; cpu runs the plain PyTorch "
+               "versions of the kernels)")
 
 
 def _read_video_lists(paths):
@@ -65,7 +76,7 @@ def cmd_stabilize(args):
                           args.device)
     driver = StreamDriver(engine, DeployOptions(
         refine=args.refine, output_size=output_size,
-        device_gray=args.device_gray))
+        device_gray=args.device_gray, collect_input_gray=args.metrics))
     failures = 0
     videos = _read_video_lists(args.test_list)
     for name in videos:
@@ -74,6 +85,15 @@ def cmd_stabilize(args):
                 os.path.join(args.prefix, "unstable", name), args.output_dir)
             print(f"{name}: {len(res.frames)} frames, crop={res.crop_rect}, "
                   f"net fps={res.fps_net:.1f}")
+            if args.metrics:
+                from stabnet_tpu_torch.eval import score_stabilized_clip
+
+                cfg = driver.cfg
+                scores = score_stabilized_clip(
+                    res.frames, res.input_gray, (cfg.height, cfg.width),
+                    crop_rect=res.crop_rect, device=args.device)
+                scores["video"] = name
+                print(json.dumps(scores))
         except Exception as e:  # one bad clip must not stop the list
             failures += 1
             print(f"error: {name}: {e}", file=sys.stderr)
@@ -97,13 +117,16 @@ def cmd_train(args):
     if args.log_dir:
         cfg = cfg.replace(log_dir=args.log_dir)
     # The resume step decorrelates the shuffle and augmentation streams, so
-    # a restored segment continues with fresh batches.
+    # a restored segment continues with fresh batches, and counts the steps
+    # before the temporal-loss gate opens, which need no TV-L1 solve.
     resume_step = (latest_step(cfg.model_dir) or 0) if args.restore else 0
     train_it = InputPipeline(os.path.join(args.data, "train"), cfg,
                              seed=args.seed, start_step=resume_step,
-                             device=args.device)
+                             device=args.device, compute_flow=args.compute_flow,
+                             flow_from_step=cfg.do_temp_loss_iter)
     test_dir = os.path.join(args.data, "test")
-    test_it = (InputPipeline(test_dir, cfg, seed=args.seed + 1, device=args.device)
+    test_it = (InputPipeline(test_dir, cfg, seed=args.seed + 1, device=args.device,
+                             compute_flow=args.compute_flow)
                if os.path.isdir(test_dir) else None)
     try:
         train(cfg, train_it, test_it, restore=args.restore, num_steps=args.steps,
@@ -112,6 +135,40 @@ def cmd_train(args):
         for it in (train_it, test_it):
             if it is not None:
                 it.close()
+
+
+def cmd_evaluate(args):
+    """Stability (and, with --input, cropping and distortion) scores of a
+    stabilized video, as one JSON line (stabnet_tpu_torch/eval/metrics.py)."""
+    import numpy as np
+
+    from stabnet_tpu_torch.config import get_config
+    from stabnet_tpu_torch.eval import evaluate_clip
+    from stabnet_tpu_torch.stream.video_io import VideoReader, to_gray_train
+
+    cfg = get_config(args.config)
+
+    def read_gray(path):
+        frames = []
+        reader = VideoReader(path)
+        for f in reader:
+            frames.append(to_gray_train(f, cfg.height, cfg.width))
+            if args.max_frames and len(frames) >= args.max_frames:
+                break
+        reader.close()
+        if not frames:
+            raise ValueError(f"no frames decoded from {path}")
+        return np.stack(frames)
+
+    out = read_gray(args.output)
+    inp = None
+    if args.input:
+        inp = read_gray(args.input)
+        n = min(len(out), len(inp))
+        out, inp = out[:n], inp[:n]
+    scores = evaluate_clip(out, inp, device=args.device)
+    scores["frames"] = int(out.shape[0])
+    print(json.dumps(scores))
 
 
 def cmd_make_synthetic(args):
@@ -141,9 +198,12 @@ def main(argv=None):
     p.add_argument("--tensorboard", action="store_true",
                    help="mirror the metrics to TensorBoard event files under "
                         "<log-dir>/tb")
-    p.add_argument("--device", default="cuda",
-                   help="torch device (default cuda; cpu runs the plain "
-                        "PyTorch versions of the kernels)")
+    p.add_argument("--compute-flow", action="store_true",
+                   help="estimate the temporal-loss flow on the device "
+                        "(TV-L1, stabnet_tpu_torch.ops.flow) instead of reading "
+                        "it from the record shards; required for shards "
+                        "without a flow field")
+    p.add_argument("--device", default="cuda", help=DEVICE_HELP)
     p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("make-synthetic", help="generate a synthetic dataset")
@@ -167,10 +227,23 @@ def main(argv=None):
     p.add_argument("--weights", default=None, metavar="NPZ",
                    help="Flax variables as an .npz keyed by '/'-joined paths "
                         "(omit for seeded random weights)")
-    p.add_argument("--device", default="cuda",
-                   help="torch device (default cuda; cpu runs the plain "
-                        "PyTorch versions of the kernels)")
+    p.add_argument("--metrics", action="store_true",
+                   help="print stability/cropping/distortion scores per clip as "
+                        "one JSON line (stabnet_tpu_torch.eval)")
+    p.add_argument("--device", default="cuda", help=DEVICE_HELP)
     p.set_defaults(fn=cmd_stabilize)
+
+    p = sub.add_parser("evaluate",
+                       help="stability/cropping/distortion scores for a "
+                            "stabilized clip")
+    p.add_argument("--output", required=True, help="stabilized video")
+    p.add_argument("--input", default=None,
+                   help="original (unstable) video; enables the cropping and "
+                        "distortion scores")
+    p.add_argument("--config", default="v2_93")
+    p.add_argument("--max-frames", type=int, default=120)
+    p.add_argument("--device", default="cuda", help=DEVICE_HELP)
+    p.set_defaults(fn=cmd_evaluate)
     args = parser.parse_args(argv)
     args.fn(args)
 

@@ -14,10 +14,11 @@ import os
 from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from stabnet_tpu_torch.ops.crop import max_clear_rect
 from stabnet_tpu_torch.stream import video_io
-from stabnet_tpu_torch.stream.engine import StreamEngine
+from stabnet_tpu_torch.stream.engine import StreamEngine, gray_from_color
 from stabnet_tpu_torch.utils.profiling import StageTimer
 
 logger = logging.getLogger("stabnet_tpu_torch")
@@ -32,6 +33,8 @@ class DeployOptions:
     device_gray: bool = False  # derive the model-scale gray on the device from
                                # the uploaded color frame (engine.gray_from_color;
                                # < 1/255 from the host conversion)
+    collect_input_gray: bool = False  # keep the model-scale inputs in ClipResult
+                                      # (O(T) host memory; `stabilize --metrics`)
 
 
 @dataclasses.dataclass
@@ -43,6 +46,9 @@ class ClipResult:
     fps_net: float                # net-step throughput (frames/s)
     stage_summary: Optional[dict] = None  # per-frame latency decomposition
                                           # (StageTimer.summary())
+    input_gray: Optional[np.ndarray] = None  # (T, H, W) model-scale inputs, the
+                                             # grays the steps computed (frame 0
+                                             # without the crop zoom)
 
 
 class StreamDriver:
@@ -67,6 +73,9 @@ class StreamDriver:
 
         out_hw = tuple(opt.output_size or unstable.shape[1:3])
         out_frames: List[np.ndarray] = [self._resize_color(first, out_hw)]
+        # Only the quality metrics keep the inputs (O(T) host memory).
+        in_grays: Optional[List[np.ndarray]] = (
+            [self._model_gray(first)] if opt.collect_input_gray else None)
         timers = StageTimer()
         for t in range(1, T):
             frame = unstable[t]
@@ -80,6 +89,9 @@ class StreamDriver:
                     state, out = self.engine.step(state, cur_gray, frame[None])
                 with timers.stage("readback"):
                     out_frames.append(out.warped_color[0].cpu().numpy())
+            if in_grays is not None:
+                in_grays.append(cur_gray[0] if cur_gray is not None
+                                else out.input_gray[0].cpu().numpy())
 
         all_black = state.all_black[0].cpu().numpy()
         rect = max_clear_rect(all_black)
@@ -90,7 +102,17 @@ class StreamDriver:
         fps_net = (T - 1) / tot_net if tot_net > 0 else float("inf")
         return ClipResult(frames=frames_arr, cropped=frames_arr[:, ys, xs, :],
                           crop_rect=rect, all_black=all_black, fps_net=fps_net,
-                          stage_summary=summary)
+                          stage_summary=summary,
+                          input_gray=None if in_grays is None else np.stack(in_grays))
+
+    def _model_gray(self, frame: np.ndarray) -> np.ndarray:
+        """(H, W) model-scale gray of one (Hf, Wf, 3) frame, without the crop
+        zoom, derived where the steps derive it (host or device)."""
+        cfg = self.cfg
+        if not self.opt.device_gray:
+            return video_io.to_gray_train(frame, cfg.height, cfg.width, 1.0)
+        color = torch.from_numpy(frame[None]).to(self.engine.device).permute(0, 3, 1, 2)
+        return gray_from_color(color, (cfg.height, cfg.width))[0].cpu().numpy()
 
     def stabilize_file(self, unstable_path: str, output_dir: str) -> ClipResult:
         """Stabilize a video file, writing `output/<name>.avi` and

@@ -52,6 +52,7 @@ class StepOutput(NamedTuple):
     x_map: torch.Tensor         # (S, H, W)
     y_map: torch.Tensor         # (S, H, W)
     warped_color: torch.Tensor  # (S, Ho, Wo, 3) uint8 stabilized full-res frame
+    input_gray: torch.Tensor    # (S, H, W) the step's model-scale input frame
 
 
 def init_state(first_gray: torch.Tensor, cfg: StabNetConfig) -> StreamState:
@@ -164,7 +165,7 @@ def stream_step(model, state: StreamState, cur_gray: Optional[torch.Tensor],
                         out_hw or tuple(cur_color.shape[2:4]))
     return new_state, StepOutput(output_gray=out_gray, black=black,
                                  x_map=warp.x_map, y_map=warp.y_map,
-                                 warped_color=warped)
+                                 warped_color=warped, input_gray=cur_gray)
 
 
 @torch.inference_mode()

@@ -228,5 +228,82 @@ def test_pipeline_errors_reach_the_consumer():
     assert next(it) == 1
     with pytest.raises(RuntimeError, match="worker died"):
         next(it)
-    with pytest.raises(ValueError, match="flow slice"):
+    with pytest.raises(ValueError, match="--compute-flow"):
         ensure_flow({"stable": np.zeros(1)})
+
+
+def _flowless_shards(path, n=4):
+    from stabnet_tpu_torch.data.synthetic import make_raw_example
+
+    path = str(path)
+    records.write_shards(path, [{k: v for k, v in make_raw_example(CFG, seed=i).items()
+                                 if k != "flow"} for i in range(n)], shard_size=n)
+    return path
+
+
+def _batches(path, k, **kw):
+    pipe = InputPipeline(path, CFG, seed=5, device="cpu", **kw)
+    try:
+        return [next(pipe) for _ in range(k)]
+    finally:
+        pipe.close()
+
+
+def test_pipeline_computes_flow_for_flowless_shards(tmp_path):
+    """tests/test_flow.py:89 on the port: shards without a flow field train
+    with `compute_flow`; the batch's flow is the TV-L1 flow of its own
+    augmented stable pair in the sampling convention.  Without it, the
+    error stays."""
+    from stabnet_tpu_torch.ops.flow import flow_to_sampling, tvl1_flow
+
+    path = _flowless_shards(tmp_path / "flowless")
+    with pytest.raises(ValueError, match="--compute-flow"):
+        _batches(path, 1)
+    (b,) = _batches(path, 1, compute_flow=True)
+    assert b["flow"].shape == (CFG.batch_size, CFG.height, CFG.width, 2)
+    want = flow_to_sampling(tvl1_flow(b["y1"][..., 0], b["y2"][..., 0]))
+    assert torch.equal(b["flow"], want)
+    # The same augmented batches as a pipeline over shards with flow: the
+    # record flow is dropped before the upload, the rest is unchanged.
+    full = str(tmp_path / "full")
+    records.write_synthetic_dataset(full, CFG, num_examples=4, shard_size=4)
+    (ref,) = _batches(full, 1)
+    (got,) = _batches(full, 1, compute_flow=True)
+    assert torch.equal(ref["y1"], got["y1"]) and torch.equal(got["flow"], b["flow"])
+
+
+def test_pipeline_skips_flow_until_gate_step(tmp_path):
+    """tests/test_flow.py:133 on the port: batches before `flow_from_step`
+    carry the zero-motion map; from it on, the TV-L1 flow (counted from
+    `start_step`)."""
+    from stabnet_tpu_torch.ops.flow import flow_to_sampling
+
+    path = _flowless_shards(tmp_path / "flowless")
+    b0, b1 = _batches(path, 2, compute_flow=True, flow_from_step=1)
+    ident = flow_to_sampling(torch.zeros((CFG.batch_size, CFG.height, CFG.width, 2)))
+    assert torch.equal(b0["flow"], ident)
+    _, r1 = _batches(path, 2, compute_flow=True)
+    assert torch.equal(b1["flow"], r1["flow"]) and not torch.equal(b1["flow"], ident)
+    (late,) = _batches(path, 1, compute_flow=True, flow_from_step=1, start_step=1)
+    assert not torch.equal(late["flow"], ident)
+
+
+def test_cli_train_compute_flow_on_flowless_shards(tmp_path):
+    """`train --compute-flow --steps 2` on shards without a flow field, with
+    the temporal loss live from step 0."""
+    import json
+
+    from stabnet_tpu_torch.cli.main import main
+
+    data = tmp_path / "data"
+    _flowless_shards(data / "train")
+    base = ["train", "--config", "tiny", "--data", str(data), "--model-dir",
+            str(tmp_path / "models"), "--log-dir", str(tmp_path / "log"), "--device", "cpu",
+            "--set", "compute_dtype=float32", "--set", "do_temp_loss_iter=0", "--steps", "2"]
+    with pytest.raises(ValueError, match="--compute-flow"):
+        main(base)
+    main(base + ["--compute-flow"])
+    with open(tmp_path / "log" / "metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    assert [r["step"] for r in rows if r["tag"] == "train"] == [0, 1]
+    assert all(np.isfinite(r["total"]) and r["temp"] > 0 for r in rows)

@@ -18,7 +18,7 @@ names = [m.name for m in pkgutil.walk_packages(stabnet_tpu_torch.__path__,
                                                "stabnet_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 33, names
+assert len(names) >= 36, names
 bad = sorted(m for m in sys.modules
              if m in ("jax", "flax", "orbax", "stabnet_tpu")
              or m.startswith(("jax.", "flax.", "orbax.", "stabnet_tpu.")))
@@ -49,6 +49,33 @@ def test_engine_defaults_to_cuda_and_raises_without_it():
     cfg = get_config("tiny")
     with pytest.raises(RuntimeError, match="CUDA"):
         StreamEngine(make_model(cfg), cfg)
+
+
+def test_metrics_default_to_cuda_and_raise_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; the default device works")
+    import numpy as np
+
+    from stabnet_tpu_torch.cli.main import main
+    from stabnet_tpu_torch.eval import evaluate_clip, score_stabilized_clip
+
+    frames = np.zeros((3, 16, 16), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate_clip(frames)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        score_stabilized_clip(np.zeros((3, 16, 16, 3), np.uint8), frames, (16, 16))
+    # The CLI's evaluate, on a clip it can read, defaults to CUDA as well.
+    cv2 = pytest.importorskip("cv2")
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "clip.avi")
+        writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), 30, (32, 24))
+        for _ in range(3):
+            writer.write(np.full((24, 32, 3), 128, np.uint8))
+        writer.release()
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(["evaluate", "--output", path, "--config", "tiny"])
 
 
 def test_chip_smoke_fails_without_a_card():

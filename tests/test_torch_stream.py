@@ -130,6 +130,65 @@ def test_driver_matches_jax(device_gray, output_size):
     np.testing.assert_array_equal(res.all_black, np.asarray(jres.all_black))
 
 
+@pytest.mark.parametrize("device_gray", [False, True])
+def test_driver_collects_the_steps_input_grays(device_gray):
+    """`collect_input_gray` keeps each frame's model-scale input, as the
+    step computed it (host or device), frame 0 without the crop zoom."""
+    from stabnet_tpu_torch.stream.engine import gray_from_color
+
+    _, colors = _clips()
+    cfg, model = _port_model()
+    engine = StreamEngine(model, cfg, device="cpu")
+    res = StreamDriver(engine, DeployOptions(device_gray=device_gray,
+                                             collect_input_gray=True)
+                       ).stabilize_clip(colors[0])
+    assert res.input_gray.shape == (T, cfg.height, cfg.width)
+    assert res.input_gray.dtype == np.float32
+    if device_gray:
+        want = gray_from_color(torch.from_numpy(colors[0]).permute(0, 3, 1, 2),
+                               (cfg.height, cfg.width)).numpy()
+    else:
+        want = np.stack([video_io.to_gray_train(f, cfg.height, cfg.width) for f in colors[0]])
+    np.testing.assert_array_equal(res.input_gray, want)
+    plain = StreamDriver(engine, DeployOptions(device_gray=device_gray)).stabilize_clip(colors[0])
+    assert plain.input_gray is None
+    np.testing.assert_array_equal(plain.frames, res.frames)
+
+
+def _write_clip(tmp_path, frames):
+    cv2 = pytest.importorskip("cv2")
+    (tmp_path / "unstable").mkdir()
+    writer = cv2.VideoWriter(str(tmp_path / "unstable" / "demo.avi"),
+                             cv2.VideoWriter_fourcc(*"MJPG"), 30, (WF, HF))
+    for f in frames:
+        writer.write(f)
+    writer.release()
+    (tmp_path / "list.txt").write_text("demo.avi\n")
+
+
+def test_cli_stabilize_metrics(tmp_path, capsys):
+    """`stabilize --metrics`: one JSON line of scores per clip."""
+    import json
+
+    from stabnet_tpu_torch.cli.main import main
+
+    _, colors = _clips()
+    _write_clip(tmp_path, colors[0])
+    main(["stabilize", "--config", "tiny", "--test-list", str(tmp_path / "list.txt"),
+          "--prefix", str(tmp_path), "--output-dir", str(tmp_path / "out"),
+          "--metrics", "--device", "cpu"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    records = [json.loads(ln) for ln in lines if ln.startswith("{")]
+    assert len(records) == 1 and "demo.avi: 12 frames" in lines[0]
+    scores = records[0]
+    assert set(scores) == {"stability", "cropping", "distortion", "stability_input",
+                           "crop_area", "video"}
+    assert scores["video"] == "demo.avi"
+    for k, v in scores.items():
+        if k != "video":
+            assert 0.0 < v <= 1.0 + 1e-6, (k, v)
+
+
 def test_cli_stabilize_with_weights(tmp_path, capsys):
     """`stabilize --weights <npz>` on a video file: the .npz holds the Flax
     variables keyed by "/"-joined paths; both output videos hold every frame."""
@@ -139,13 +198,7 @@ def test_cli_stabilize_with_weights(tmp_path, capsys):
     from stabnet_tpu_torch.cli.main import main
 
     _, colors = _clips()
-    (tmp_path / "unstable").mkdir()
-    writer = cv2.VideoWriter(str(tmp_path / "unstable" / "demo.avi"),
-                             cv2.VideoWriter_fourcc(*"MJPG"), 30, (WF, HF))
-    for f in colors[0]:
-        writer.write(f)
-    writer.release()
-    (tmp_path / "list.txt").write_text("demo.avi\n")
+    _write_clip(tmp_path, colors[0])
     variables = jax.tree_util.tree_map(np.asarray, _jax_model()[2])
     np.savez(tmp_path / "w.npz", **flatten_dict(variables, sep="/"))
 
