@@ -7,7 +7,8 @@ check them.
 Phases (each prints one line or a few; any failure stops the run with a
 nonzero exit):
   1. device: the card (nvidia-smi name and power limit) and the kernels'
-     build from stabnet_tpu_torch/csrc (one nvcc per source, in parallel);
+     build from stabnet_tpu_torch/csrc (one nvcc per source, in parallel),
+     then the native crop's (g++);
   2. K2 (f32 sampler at given maps) against its plain PyTorch version on
      the card, bit for bit, at S=1 and S=4 and at the training shapes
      (10, 288, 512, 2) and (20, 288, 512, 1), and at 5 channels (read at
@@ -58,7 +59,23 @@ nonzero exit):
  13. flow-fed training: phase 8's shards with the flow field stripped,
      `train` refused on them, then `train --compute-flow` through the CLI
      at v2_93 bf16 batch 10 for 4 steps with the temporal loss live, its
-     launches and time per iteration beside phase 10's.
+     launches and time per iteration beside phase 10's;
+ 14. serving modes at v2_93 bf16 720p on phase 4's clips: the S=1 driver
+     pipelined against synchronous (bit for bit, per-frame p50 and p90 of
+     each); stabilize_batch of clips of 40, 23 and 9 frames at 4 streams,
+     chunked by 16 against unchunked and each clip against itself alone
+     (bit for bit; K1 and K2m once per scanned step); the 4-clip batch's
+     frames/s beside its host preparation; stabilize_stream over arrays at
+     chunk 16 against the chunked batch (bit for bit); every ablation mode
+     and --deploy-vis for 8 frames with a stable clip; one ablation mode card
+     against CPU in f32; the native crop against the plain one on every
+     clip's black map, and their times;
+ 15. weights in: `stabilize --model-dir`'s engine (cli.main.build_engine)
+     on phase 8's step-6 checkpoint against an engine loaded from that
+     state.pt by hand (bit for bit); the TF-slim mapping of a full-width
+     seeded slim dict, loaded strictly and served for 8 frames; an ImageNet
+     trunk grafted by transfer_from_imagenet, then one training step (finite
+     losses; K2 2, K4 1, K6b 1 launches).
 The line before the last is a JSON object with every kernel's numbers; the
 last line is {"ok": true, "device": {...}}.  Needs CUDA and the repository
 beside it; imports nothing of JAX.
@@ -279,6 +296,7 @@ KERNEL_NAMES = ("warp_uint8_kernel", "bilinear_sample_kernel", "warp_mesh_kernel
 
 
 def phase_device():
+    from stabnet_tpu_torch.native import native_ops
     from stabnet_tpu_torch.ops import cuda_build
 
     card = card_line()
@@ -287,13 +305,17 @@ def phase_device():
     for name in SOURCES:
         cuda_build.load(name)
     build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native_ops.load()
+    native_s = time.perf_counter() - t0
     regs = []
     for name in SOURCES:
         with open(cuda_build.library_path(name) + ".log", errors="replace") as f:
             regs += [f"{name}: {ln.strip()}" for ln in f if "registers" in ln]
     print(f"[1 device] {card} | torch {torch.__version__} cuda {torch.version.cuda}"
           f" | csrc/{{{','.join(SOURCES)}}}.cu built in parallel and loaded in "
-          f"{build_s:.2f} s | {'; '.join(regs)}")
+          f"{build_s:.2f} s; native/crop.cc built with g++ and loaded in {native_s:.2f} s"
+          f" | {'; '.join(regs)}")
     print(f"[1 sass] instructions per kernel (cuobjdump -sass): {sass_sizes(SOURCES)}")
     return card
 
@@ -1425,6 +1447,269 @@ def phase_flow_train(card: str, tmp: str, data: str, flowless_iter_ms: float):
     return launches, iter_ms
 
 
+# --- serving modes and weights in --------------------------------------------
+
+def stage_percentiles(res) -> dict:
+    """p50 and p90 of the per-frame "net" (dispatch + readback), ms."""
+    st = res.stage_summary["net"]
+    return {"p50": st["p50_ms"], "p90": st["p90_ms"]}
+
+
+def phase_serving_modes(card: str, dev, engine, clips: np.ndarray):
+    """The driver's serving modes on phase 4's engine and clips.  Returns
+    the launch counts of the chunked batch (K1 and K2m once per step)."""
+    from stabnet_tpu_torch.config import V2_93
+    from stabnet_tpu_torch.data.synthetic import make_video
+    from stabnet_tpu_torch.ops import cuda_warp, max_clear_rect, max_clear_rect_plain
+    from stabnet_tpu_torch.stream import DeployOptions, StreamDriver, StreamEngine, video_io
+
+    T = clips.shape[1]
+    zero = {k: 0 for k in launch_counts()}
+
+    def same(a, b, what):
+        check(np.array_equal(a.frames, b.frames) and np.array_equal(a.all_black, b.all_black)
+              and a.crop_rect == b.crop_rect, f"{what}: not bit for bit")
+
+    # Pipelined against synchronous, in turns, on the same clip.
+    runs = {}
+    for name in ("sync", "pipelined", "sync", "pipelined"):
+        driver = StreamDriver(engine, DeployOptions(device_gray=True,
+                                                    pipelined=name == "pipelined"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = driver.stabilize_clip(clips[0])
+        wall = (time.perf_counter() - t0) / (T - 1) * 1e3
+        runs.setdefault(name, []).append((res, wall))
+    for (a, _), (b, _) in zip(runs["sync"], runs["pipelined"]):
+        same(a, b, "pipelined vs sync")
+    lat = {name: [dict(stage_percentiles(r), wall=w) for r, w in rs]
+           for name, rs in runs.items()}
+    print(f"[14 pipelined] {card} | v2_93 bf16 720p S=1 T={T}, device gray, runs in "
+          f"turns sync, pipelined, sync, pipelined: frames, black map and crop equal bit "
+          f"for bit; per-frame net (dispatch + readback) ms p50/p90 and wall ms/frame "
+          f"(whole clip incl. crop): "
+          + "; ".join(f"{n} " + ", ".join(f"{d['p50']:.3f}/{d['p90']:.3f} wall {d['wall']:.3f}"
+                                          for d in ds) for n, ds in lat.items()))
+
+    # stabilize_batch: clips of 40, 23 and 9 frames as 4 streams.
+    batch = [clips[0], clips[1][:23], clips[2][:9]]
+    driver = StreamDriver(engine, DeployOptions())
+    results, counts = {}, {}
+    for chunk in (None, 16):
+        cuda_warp.reset_launch_counts()
+        results[chunk] = driver.stabilize_batch(batch, chunk=chunk, pad_streams=4)
+        torch.cuda.synchronize()
+        counts[chunk] = launch_counts()
+        steps = T - 1 if chunk is None else 1 + -(-(T - 1) // chunk) * chunk - 1
+        want = zero | {"warp_mesh": steps, "warp_uint8_cf_lowres": steps}
+        check(counts[chunk] == want, f"batch chunk={chunk} launches {counts[chunk]}, "
+                                     f"expected {want}")
+    for i, clip in enumerate(batch):
+        check(results[16][i].frames.shape == (len(clip),) + CLIP_HW + (3,),
+              f"batch clip {i} frames {results[16][i].frames.shape}")
+        same(results[16][i], results[None][i], f"batch clip {i} chunked vs unchunked")
+        alone = driver.stabilize_batch([clip], pad_streams=4)[0]
+        same(results[None][i], alone, f"batch clip {i} vs alone at 4 streams")
+    four = driver.stabilize_batch(list(clips), chunk=16)
+    st = four[0].stage_summary
+    batch_fps = four[0].fps_net
+    print(f"[14 batch] {card} | stabilize_batch of clips of {[len(c) for c in batch]} "
+          f"frames at pad_streams=4: chunk 16 launches {counts[16]}, unchunked "
+          f"{counts[None]} (K1 and K2m once per scanned step); chunked, unchunked and "
+          f"each clip alone at 4 streams bit for bit; 4 clips of {T} frames at chunk 16: "
+          f"{batch_fps:.2f} frames/s over the scan and readback ({st['scan']['total_s']:.3f} s), "
+          f"host gray and resize preparation {st['pre']['total_s']:.3f} s apart "
+          f"({4 * (T - 1) / (st['scan']['total_s'] + st['pre']['total_s']):.2f} frames/s "
+          f"with it)")
+
+    # Constant-memory streaming over arrays against the chunked batch.
+    writer = video_io.ArrayVideoWriter()
+    streamed = driver.stabilize_stream(video_io.ArrayVideoReader(clips[0]), writer, 16)
+    want = driver.stabilize_batch([clips[0]], chunk=16)[0]
+    check(streamed.frames is None and streamed.num_frames == T, "streamed result")
+    check(np.array_equal(writer.stack(), want.frames)
+          and np.array_equal(streamed.all_black, want.all_black)
+          and streamed.crop_rect == want.crop_rect, "streaming vs chunked batch")
+    print(f"[14 stream] {card} | stabilize_stream over arrays, chunk 16, {T} frames: "
+          f"equal to the chunked S=1 batch bit for bit; {streamed.fps_net:.2f} frames/s "
+          f"over the scans and readbacks (S=1 batch {want.fps_net:.2f})")
+
+    # Every ablation mode and the vis mosaics for 8 frames with a stable clip.
+    K = 8
+    stable = make_video(K, *CLIP_HW, seed=0, jitter=0.0)
+    cfg = engine.cfg
+    modes = [dict(infer_with_last=True), dict(infer_with_stable=True, random_black=5),
+             dict(max_span=3), dict(start_with_stable=True), dict(deploy_vis=True)]
+    done = []
+    for opts in modes:
+        cuda_warp.reset_launch_counts()
+        res = StreamDriver(engine, DeployOptions(**opts)).stabilize_clip(clips[0][:K], stable)
+        torch.cuda.synchronize()
+        want = zero | {"warp_mesh": K - 1, "warp_uint8_cf_lowres": K - 1}
+        check(launch_counts() == want, f"{opts} launches {launch_counts()}")
+        check(res.frames.shape == (K,) + CLIP_HW + (3,), f"{opts} frames {res.frames.shape}")
+        if opts.get("deploy_vis"):
+            check(res.vis.shape == (K - 1, 2 * cfg.height, 2 * cfg.width, 3),
+                  f"vis {res.vis.shape}")
+        done.append("+".join(opts))
+    # One ablation mode card against CPU, f32, TF32 off (phase 5's bound).
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f32 = V2_93.replace(compute_dtype="float32")
+    cpu_model = random_model(f32, 1)
+    outs = {}
+    for name, model, device in (("card", copy.deepcopy(cpu_model), dev),
+                                ("cpu", cpu_model, "cpu")):
+        outs[name] = StreamDriver(StreamEngine(model, f32, device=device), DeployOptions(
+            infer_with_stable=True, max_span=3)).stabilize_clip(clips[0][:K], stable)
+    torch.backends.cudnn.allow_tf32 = True
+    diff = np.abs(outs["card"].frames.astype(np.int32) - outs["cpu"].frames.astype(np.int32))
+    within1 = float((diff <= 1).mean())
+    black_diff = int((outs["card"].all_black != outs["cpu"].all_black).sum())
+    print(f"[14 ablations] {card} | {K} frames with a stable clip, each K1 and K2m "
+          f"{K - 1} launches: {done}, vis mosaics {(K - 1, 2 * cfg.height, 2 * cfg.width, 3)}; "
+          f"infer_with_stable + max_span=3 card vs CPU, f32, TF32 off: within 1 LSB on "
+          f"{within1 * 100:.4f}% of pixels (need >= 99.9), max {int(diff.max())} LSB "
+          f"(need <= 2); all_black differs at {black_diff} pixels (need 0)")
+    check(within1 >= 0.999 and diff.max() <= 2 and black_diff == 0,
+          "ablation mode: card and CPU disagree")
+
+    # The native crop against the plain one on every clip's black map.
+    maps = ([r.all_black for r in results[None]] + [r.all_black for r in four]
+            + [runs["sync"][0][0].all_black, outs["card"].all_black])
+    for m in maps:
+        check(max_clear_rect(m) == max_clear_rect_plain(m), "native crop vs plain")
+    times = {}
+    for name, fn in (("native", max_clear_rect), ("plain", max_clear_rect_plain)):
+        ts = []
+        for m in maps:
+            t0 = time.perf_counter()
+            fn(m)
+            ts.append((time.perf_counter() - t0) * 1e3)
+        times[name] = float(np.median(ts))
+    print(f"[14 crop] {card} | max_clear_rect native (g++ -O3, ctypes) vs plain "
+          f"(Python) on {len(maps)} black maps at {cfg.height}x{cfg.width}: equal "
+          f"rectangles; median ms per clip native {times['native']:.4f}, plain "
+          f"{times['plain']:.3f}")
+    return counts[16]
+
+
+def slim_var_shapes(in_ch: int, prefix: str, head_prefix=None) -> dict:
+    """The variable inventory of TF-slim's resnet_v2_50 (+ the StabNet head):
+    {name: shape}, from slim's structure (s_net_bundle_nobm.py:253)."""
+    v = {}
+
+    def bn(p, c):
+        for k in ("gamma", "beta", "moving_mean", "moving_variance"):
+            v[f"{p}/{k}"] = (c,)
+
+    v[f"{prefix}/conv1/weights"] = (7, 7, in_ch, 64)
+    v[f"{prefix}/conv1/biases"] = (64,)
+    depth_in = 64
+    for b, n in enumerate((3, 4, 6, 3), 1):
+        depth, depth_bn = 256 * 2 ** (b - 1), 64 * 2 ** (b - 1)
+        for u in range(1, n + 1):
+            s = f"{prefix}/block{b}/unit_{u}/bottleneck_v2"
+            bn(f"{s}/preact", depth_in)
+            if depth_in != depth:
+                v[f"{s}/shortcut/weights"] = (1, 1, depth_in, depth)
+                v[f"{s}/shortcut/biases"] = (depth,)
+            v[f"{s}/conv1/weights"] = (1, 1, depth_in, depth_bn)
+            bn(f"{s}/conv1/BatchNorm", depth_bn)
+            v[f"{s}/conv2/weights"] = (3, 3, depth_bn, depth_bn)
+            bn(f"{s}/conv2/BatchNorm", depth_bn)
+            v[f"{s}/conv3/weights"] = (1, 1, depth_bn, depth)
+            v[f"{s}/conv3/biases"] = (depth,)
+            depth_in = depth
+    bn(f"{prefix}/postnorm", 2048)
+    if head_prefix is not None:
+        for i, (din, dout) in enumerate(((2048, 2048), (2048, 1024), (1024, 512)), 1):
+            v[f"{head_prefix}/fc/fc_{i}/weights"] = (din, dout)
+            v[f"{head_prefix}/fc/fc_{i}/biases"] = (dout,)
+        v[f"{head_prefix}/fc_weights"] = (512, 50)
+        v[f"{head_prefix}/fc_bias"] = (50,)
+    return v
+
+
+def slim_values(shapes: dict, seed: int) -> dict:
+    """Seeded values: N(0, 0.05^2), moving variances in [0.5, 1.5)."""
+    rng = np.random.RandomState(seed)
+    return {name: ((0.5 + rng.rand(*shape)) if name.endswith("moving_variance")
+                   else rng.randn(*shape) * 0.05).astype(np.float32)
+            for name, shape in shapes.items()}
+
+
+def phase_weights_in(card: str, dev, clips: np.ndarray, tmp: str, data: str):
+    """Weights in: `--model-dir` serving, the TF-slim mapping, the ImageNet
+    graft and a training step after it."""
+    from stabnet_tpu_torch.cli.main import build_engine
+    from stabnet_tpu_torch.compat import convert_resnet_v2_50, convert_stabnet_variables
+    from stabnet_tpu_torch.config import V2_93
+    from stabnet_tpu_torch.data.pipeline import InputPipeline
+    from stabnet_tpu_torch.models import make_model
+    from stabnet_tpu_torch.ops import cuda_warp
+    from stabnet_tpu_torch.stream import DeployOptions, StreamDriver, StreamEngine
+    from stabnet_tpu_torch.train import create_train_state, train_step
+    from stabnet_tpu_torch.train.checkpoint import transfer_from_imagenet
+
+    K = 8
+    clip = clips[:1, :K]
+    grays = host_grays(clip, V2_93)
+    model_dir = os.path.join(tmp, "models")
+    served = build_engine("v2_93", model_dir=model_dir, device=dev)
+    by_hand = make_model(V2_93)
+    by_hand.load_state_dict(torch.load(os.path.join(model_dir, "6", "state.pt"),
+                                       map_location="cpu", weights_only=True)["model"])
+    (wa, sa), (wb, sb) = (e.stabilize_clip(grays, clip) for e in (
+        served, StreamEngine(by_hand, V2_93, device=dev)))
+    check(torch.equal(wa, wb) and torch.equal(sa.all_black, sb.all_black),
+          "--model-dir serving differs from the checkpoint's weights")
+    black_share = float((sa.all_black > 0).float().mean())
+    del served
+
+    trunk, head = "stable_net/resnet/resnet_v2_50", "stable_net/resnet/fc"
+    values = slim_values(slim_var_shapes(V2_93.in_channels, trunk, head), seed=7)
+    for k in (f"{head}/fc_weights", f"{head}/fc_bias"):   # production magnitude
+        values[k] *= np.float32(0.05)
+    model = make_model(V2_93)
+    model.load_state_dict(convert_stabnet_variables(values), strict=True)
+    cuda_warp.reset_launch_counts()
+    res = StreamDriver(StreamEngine(model, V2_93, device=dev),
+                       DeployOptions(device_gray=True)).stabilize_clip(clips[0][:K])
+    torch.cuda.synchronize()
+    tf_launches = launch_counts()
+    check(res.frames.shape == (K,) + CLIP_HW + (3,)
+          and tf_launches["warp_mesh"] == K - 1 and tf_launches["warp_uint8_cf_lowres"] == K - 1,
+          f"slim-mapped model: frames {res.frames.shape}, launches {tf_launches}")
+
+    cfg = live_config()
+    state = create_train_state(cfg, device=dev, seed=0)
+    imagenet = convert_resnet_v2_50(slim_values(slim_var_shapes(3, "resnet_v2_50"), seed=8))
+    state.model.load_state_dict(transfer_from_imagenet(state.model.state_dict(), imagenet))
+    grafted = state.model.state_dict()
+    check(all(torch.equal(grafted[k].cpu(), v) for k, v in imagenet.items()
+              if not k.startswith("resnet_v2_50.conv1.")), "graft incomplete")
+    pipe = InputPipeline(os.path.join(data, "train"), cfg, seed=2, device=dev)
+    batch = next(pipe)
+    pipe.close()
+    torch.cuda.synchronize()
+    cuda_warp.reset_launch_counts()
+    state, aux = train_step(state, batch, cfg)
+    losses = {k: float(v) for k, v in aux.items()}
+    launches = launch_counts()
+    want = {k: 0 for k in launches} | {"bilinear_sample": 2, "bilinear_splat": 1,
+                                        "sample_map_grad": 1}
+    check(launches == want, f"step after the graft: launches {launches}, expected {want}")
+    check(all(math.isfinite(v) for v in losses.values()), f"losses {losses}")
+    print(f"[15 weights in] {card} | stabilize --model-dir (build_engine) on phase 8's "
+          f"step-6 state.pt vs an engine loaded by hand: {K} frames and black map bit for "
+          f"bit (black share {black_share:.4f}); TF-slim mapping of a full-width seeded "
+          f"v2_93 slim dict ({len(values)} variables) loaded strictly, served {K} frames "
+          f"with launches {tf_launches}, crop {res.crop_rect}; ImageNet trunk "
+          f"({len(imagenet)} tensors) grafted, one v2_93 bf16 batch-10 step: launches "
+          f"{launches}, losses total {losses['total']:.6g}, img {losses['img1']:.6g}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1442,6 +1727,7 @@ def main() -> int:
     errs["bilinear_sample"] = max(errs["bilinear_sample"], flow_err)
     timed[("bilinear_sample", "(10, 288, 512, 3) edge-inclusive")] = flow_timed
     phase_metrics(card, dev, engine, clips)
+    batch_launches = phase_serving_modes(card, dev, engine, clips)
     del engine, driver
     errs.update(phase_grad_kernels(gen, dev))
     with tempfile.TemporaryDirectory() as tmp:
@@ -1450,6 +1736,7 @@ def main() -> int:
         train_timed, flowless_iter_ms = phase_train_times(card, gen, dev, data)
         timed.update(train_timed)
         phase_flow_train(card, tmp, data, flowless_iter_ms)
+        phase_weights_in(card, dev, clips, tmp, data)
     # K2, K4 and K6b run on the training path: their launches are a
     # segment's, at the shapes of the K6 forward and of the backwards.
     kernels.insert(0, kernel_row("bilinear_sample", "stabnet_tpu/ops/pallas_warp.py:469",
@@ -1464,6 +1751,7 @@ def main() -> int:
         row["launches_serving"] = launches[row["name"]]
         row["launches_train"] = train_launches[row["name"]]
         row["launches_flow"] = flow_launches[row["name"]]
+        row["launches_batch"] = batch_launches[row["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
 """Geometry and warp ops (PyTorch port of stabnet_tpu.ops)."""
 
-from stabnet_tpu_torch.ops.crop import max_clear_rect
+from stabnet_tpu_torch.ops.crop import max_clear_rect, max_clear_rect_plain
 from stabnet_tpu_torch.ops.flow import flow_to_sampling, tvl1_flow
 from stabnet_tpu_torch.ops.homography import (
     apply_homography,

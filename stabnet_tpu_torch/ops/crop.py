@@ -5,8 +5,11 @@ accumulated and the largest axis-aligned rectangle containing no black pixel is
 cut from every frame (reference: deploy_bundle.py:344-371, an O(H^2 W^2)
 prefix-sum brute force with strided start points).
 
-This is the exact O(H*W) largest-rectangle-in-histogram algorithm, in Python
-on the host; it never returns a smaller rectangle than the reference search.
+This is the exact O(H*W) largest-rectangle-in-histogram algorithm; it never
+returns a smaller rectangle than the reference search.  `max_clear_rect` runs
+it as native C++ (native/crop.cc, built with g++ at first use; a failed build
+raises); `max_clear_rect_plain` is the same scan in Python, the tests'
+yardstick.
 """
 
 from __future__ import annotations
@@ -17,6 +20,14 @@ import numpy as np
 
 
 def max_clear_rect(black: np.ndarray) -> Tuple[int, int, int, int]:
+    """Largest all-clear rectangle in an accumulated black-pixel count map,
+    by the native library (see `max_clear_rect_plain` for the contract)."""
+    from stabnet_tpu_torch.native import native_ops
+
+    return native_ops.max_clear_rect(black)
+
+
+def max_clear_rect_plain(black: np.ndarray) -> Tuple[int, int, int, int]:
     """Largest all-clear rectangle in an accumulated black-pixel count map.
 
     Args:

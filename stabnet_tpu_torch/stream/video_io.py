@@ -134,18 +134,32 @@ class ArrayVideoReader:
 class VideoWriter:
     """MJPG .avi writer (reference: deploy_bundle.py:197-198)."""
 
-    def __init__(self, path: str, fps: float, size_hw: Tuple[int, int]):
-        cv2 = _require_cv2()
+    def __init__(self, path: str, fps: float,
+                 size_hw: Optional[Tuple[int, int]] = None):
+        """`size_hw=None` opens the file at the first frame, at its size."""
+        self._cv2 = _require_cv2()
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        self.path, self.fps = path, fps
+        self.size_hw: Optional[Tuple[int, int]] = None
+        self.writer = None
+        if size_hw is not None:
+            self._open(tuple(size_hw))
+
+    def _open(self, size_hw: Tuple[int, int]):
+        cv2 = self._cv2
+        self.size_hw = size_hw
         h, w = size_hw
         self.writer = cv2.VideoWriter(
-            path, cv2.VideoWriter_fourcc("M", "J", "P", "G"), fps, (w, h))
+            self.path, cv2.VideoWriter_fourcc("M", "J", "P", "G"), self.fps, (w, h))
 
     def write(self, frame_bgr: np.ndarray):
+        if self.writer is None:
+            self._open(tuple(frame_bgr.shape[:2]))
         self.writer.write(frame_bgr)
 
     def close(self):
-        self.writer.release()
+        if self.writer is not None:
+            self.writer.release()
 
 
 class ArrayVideoWriter:

@@ -4,8 +4,10 @@ train_bundle_nobm.py:195,204-208,271-272).
 `<model_dir>/<step>/state.pt` holds the step, the model's parameters and BN
 statistics (its state_dict) and the optimizer's moments, written with
 `torch.save`; the five newest are kept, as the JAX package's Orbax manager
-keeps them.  The ImageNet transfer restore (`transfer_from_imagenet`) waits
-for the port's `compat/` slice.
+keeps them.  `load_model_state` reads the model part alone, for serving.
+`transfer_from_imagenet` is the cold-start transfer restore of an ImageNet
+ResNet-v2-50 that keeps the 13-channel conv1 and the head
+(train_bundle_nobm.py:101-102,184-191).
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from __future__ import annotations
 import logging
 import os
 import shutil
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -68,3 +70,82 @@ def restore(directory: str, state: TrainState) -> TrainState:
     state.step = int(ckpt["step"])
     logger.info("restored checkpoint step=%d from %s", step, directory)
     return state
+
+
+def load_model_state(directory: str) -> Dict[str, torch.Tensor]:
+    """The model's state_dict from the newest checkpoint of `directory`, on
+    the CPU; raises FileNotFoundError if there is none."""
+    step = latest_step(directory)
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint in {directory}")
+    ckpt = torch.load(os.path.join(directory, str(step), _FILE),
+                      map_location="cpu", weights_only=True)
+    logger.info("loaded model of checkpoint step=%d from %s", step, directory)
+    return ckpt["model"]
+
+
+_TRUNK = "resnet_v2_50."
+_STATS = ("running_mean", "running_var")
+
+
+def _trunk_units(state: Dict[str, torch.Tensor]) -> Dict[str, Dict[str, Dict]]:
+    """{collection: {unit: {leaf path: shape}}} of the `resnet_v2_50.*`
+    keys, with the Flax collections: BN running statistics are
+    "batch_stats", everything else "params"."""
+    units: Dict[str, Dict[str, Dict]] = {"params": {}, "batch_stats": {}}
+    for key, value in state.items():
+        if not key.startswith(_TRUNK):
+            continue
+        unit, _, leaf = key[len(_TRUNK):].partition(".")
+        collection = "batch_stats" if leaf.endswith(_STATS) else "params"
+        units[collection].setdefault(unit, {})[leaf] = tuple(value.shape)
+    return units
+
+
+def transfer_from_imagenet(model_state: Dict[str, torch.Tensor],
+                           trunk_state: Dict[str, torch.Tensor]
+                           ) -> Dict[str, torch.Tensor]:
+    """Graft pretrained trunk weights, keeping the 13-channel stem and the
+    head as they are.
+
+    Args:
+      model_state: the StabNet regressor's state_dict.
+      trunk_state: `resnet_v2_50.*` entries of a trunk with a 3-channel stem
+        (`compat.convert_imagenet_checkpoint`).  The reference's
+        `get_variables_to_restore` selects MODEL variables, which include the
+        BN moving mean and variance, so the statistics transfer too.
+
+    Returns:
+      a new state_dict with every trunk unit except `conv1` replaced.
+
+    Raises:
+      KeyError / ValueError on a missing, extra or misshapen unit (a wrong
+      pretrained checkpoint must fail loudly, not train from garbage), with
+      the JAX package's messages (stabnet_tpu/train/checkpoint.py:57-112).
+    """
+    have, src = _trunk_units(model_state), _trunk_units(trunk_state)
+    for collection in ("params", "batch_stats"):
+        # Both directions must fail loudly: extra pretrained units mean the
+        # wrong checkpoint; MISSING ones would leave model blocks randomly
+        # initialized (a truncated or smaller resnet).
+        missing = set(have[collection]) - set(src[collection]) - {"conv1"}
+        if missing:
+            raise KeyError(
+                f"pretrained checkpoint lacks {collection} for model trunk "
+                f"unit(s) {sorted(missing)}; wrong checkpoint?")
+        for unit, shapes in src[collection].items():
+            if unit == "conv1":
+                continue  # the 13-channel stem stays as it is
+            if unit not in have[collection]:
+                raise KeyError(
+                    f"pretrained trunk has {collection}/{unit!r} but the model "
+                    f"does not; wrong checkpoint?")
+            if have[collection][unit] != shapes:
+                raise ValueError(
+                    f"shape mismatch grafting {collection}/{unit}: "
+                    f"model {have[collection][unit]} vs pretrained {shapes}")
+    out = dict(model_state)
+    for key, value in trunk_state.items():
+        if key.startswith(_TRUNK) and not key.startswith(_TRUNK + "conv1."):
+            out[key] = value.detach().clone()
+    return out

@@ -3,8 +3,8 @@
 Reference: train_bundle_nobm.py:199-357 — per-100-iteration loss display
 with the data-read vs. train-time split, per-500-iteration held-out eval
 over 10 batches, per-5000-iteration checkpoints; the JAX package's
-stabnet_tpu/train/loop.py.  Data parallelism, the debug mosaics and the
-ImageNet transfer come with later slices of the port.
+stabnet_tpu/train/loop.py.  Data parallelism and the debug mosaics come
+with later slices of the port.
 """
 
 from __future__ import annotations
@@ -61,7 +61,8 @@ class MetricsWriter:
 def train(cfg: StabNetConfig, train_batches: Iterator,
           test_batches: Optional[Iterator] = None, restore: bool = False,
           num_steps: Optional[int] = None, seed: int = 0,
-          tensorboard: bool = False, device=None):
+          tensorboard: bool = False, device=None,
+          imagenet_ckpt: Optional[str] = None):
     """Run training to step `num_steps` (default cfg.training_iter); returns
     (final TrainState, the last step's loss terms).
 
@@ -70,12 +71,21 @@ def train(cfg: StabNetConfig, train_batches: Iterator,
     `cfg.test_batches` batches of `test_batches` every `test_freq` steps and
     at the last, saves every `save_freq` steps and always at the last, and
     with `restore` resumes from the newest checkpoint in cfg.model_dir
-    (reference: --restore, train_bundle_nobm.py:36,204-206).  `device`
-    defaults to CUDA.
+    (reference: --restore, train_bundle_nobm.py:36,204-206).  Without
+    `restore`, `imagenet_ckpt` (slim's ImageNet resnet_v2_50 checkpoint)
+    grafts its trunk onto the fresh model, conv1 and the head kept
+    (train_bundle_nobm.py:184-191,208).  `device` defaults to CUDA.
     """
     state = create_train_state(cfg, device=device, seed=seed)
     if restore:
         state = ckpt.restore(cfg.model_dir, state)
+    elif imagenet_ckpt:
+        from stabnet_tpu_torch.compat import convert_imagenet_checkpoint
+
+        state.model.load_state_dict(ckpt.transfer_from_imagenet(
+            state.model.state_dict(), convert_imagenet_checkpoint(imagenet_ckpt)))
+        logger.info("transferred ImageNet trunk from %s (conv1 + head kept "
+                    "random)", imagenet_ckpt)
     metrics = MetricsWriter(cfg.log_dir, tensorboard=tensorboard)
     timers = StageTimer()
     total = num_steps if num_steps is not None else cfg.training_iter

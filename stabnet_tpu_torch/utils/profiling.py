@@ -19,7 +19,8 @@ class StageTimer:
 
     The streaming driver's per-frame latency decomposition
     ("pre"/"dispatch"/"readback", StreamDriver.stabilize_clip, and "net",
-    which spans dispatch and readback of one frame).  On CUDA, "dispatch"
+    one frame's dispatch plus its readback, which the pipelined mode
+    issues after the next frame's dispatch).  On CUDA, "dispatch"
     measures the enqueue and "readback" the wait for the device.  The train
     loop's "data" (waiting for the next batch) and "step" (enqueueing a
     step, and waiting for the device when the loop reads the losses).
@@ -36,6 +37,10 @@ class StageTimer:
         finally:
             self.samples[name].append(time.perf_counter() - t0)
 
+    def add(self, name: str, seconds: float) -> None:
+        """Record a sample measured elsewhere (e.g. a sum of two stages)."""
+        self.samples[name].append(seconds)
+
     def summary(self) -> Dict[str, Dict[str, float]]:
         out = {}
         for name, xs in self.samples.items():
@@ -45,6 +50,7 @@ class StageTimer:
                 "total_s": float(a.sum()),
                 "mean_ms": float(a.mean() * 1e3),
                 "p50_ms": float(np.percentile(a, 50) * 1e3),
+                "p90_ms": float(np.percentile(a, 90) * 1e3),
                 "p95_ms": float(np.percentile(a, 95) * 1e3),
             }
         return out

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports no JAX and nothing of the JAX
-package, it runs on CUDA unless the CPU is asked for, and its chip smoke
-script refuses to report success without a card."""
+package (and TensorFlow only inside `compat.load_tf_checkpoint`), it runs on
+CUDA unless the CPU is asked for, and its chip smoke script refuses to report
+success without a card."""
 
 import os
 import subprocess
@@ -18,10 +19,10 @@ names = [m.name for m in pkgutil.walk_packages(stabnet_tpu_torch.__path__,
                                                "stabnet_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 36, names
+assert len(names) >= 40, names
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "flax", "orbax", "stabnet_tpu")
-             or m.startswith(("jax.", "flax.", "orbax.", "stabnet_tpu.")))
+             if m in ("jax", "flax", "orbax", "stabnet_tpu", "tensorflow")
+             or m.startswith(("jax.", "flax.", "orbax.", "stabnet_tpu.", "tensorflow.")))
 assert not bad, bad
 print("imported", len(names))
 """
