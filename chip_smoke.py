@@ -75,7 +75,28 @@ nonzero exit):
      state.pt by hand (bit for bit); the TF-slim mapping of a full-width
      seeded slim dict, loaded strictly and served for 8 frames; an ImageNet
      trunk grafted by transfer_from_imagenet, then one training step (finite
-     losses; K2 2, K4 1, K6b 1 launches).
+     losses; K2 2, K4 1, K6b 1 launches);
+ 16. export: the v2_93 bf16 720p serving step traced by torch.export at S=1,
+     and at S=4 with a 4-frame segment, saved, loaded from bytes and served:
+     phase 4's clip through StreamDriver on the exported engine against the
+     live one (bit for bit, K1 and K2m once per frame), the 4-clip batch on
+     the segment against the live batch chunked by 4 (bit for bit), export
+     and load seconds, artifact bytes, "net" p50/p90 of each engine in
+     turns, and the device operations per frame of each;
+ 17. data parallel: `train --data-parallel` through the CLI on phase 8's
+     shards for 2 steps in rank processes of this script: (a) one NCCL rank
+     under torch.distributed.run against the plain run, v2_93 bf16 batch
+     10, bit for bit (cuDNN's deterministic algorithms in both); (b) two
+     gloo ranks on the one card, global batch 10, against one process on
+     the merged batch in f32 (TF32 off), within the CPU test's rtol 3.4e-3;
+     K2 2, K4 1 and K6b 1 launches per rank per step, ms per step of each;
+ 18. sharded serving: stabilize_clips_sharded over two replicas on the card
+     at S=4 against each shard's own run at S=2, and the driver's sharded
+     batch over the card's one replica against the unsharded batch, bit for
+     bit;
+and in phase 12 the card-against-CPU gap of fit_homographies split by
+cause (its normal equations summed in float64 on both devices).
+`python3 chip_smoke.py _dp_rank MODE ARGS...` is phase 17's rank process.
 The line before the last is a JSON object with every kernel's numbers; the
 last line is {"ok": true, "device": {...}}.  Needs CUDA and the repository
 beside it; imports nothing of JAX.
@@ -88,6 +109,7 @@ import gc
 import json
 import math
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -252,10 +274,12 @@ def device_ms(fn, calls: int = 20, warmup: int = 5, reps: int = 50) -> float:
     return float(np.median(times))
 
 
-def profile_path(engine, clip: np.ndarray, frames: int = 20):
+def profile_path(engine, clip: np.ndarray, frames: int = 20, device_gray: bool = True):
     """The same `frames` steps at S=1 with per-frame readback, run twice from
     a fresh state: without the profiler for the wall time, then under
     torch.profiler for the summed kernel time and the kernels that take most.
+    The model-scale grays are derived on the device, or with `device_gray`
+    False made on the host beforehand and uploaded each step.
     Returns (wall, profiled wall, kernel time) in ms/frame, the device
     operations (kernels, copies, fills) per frame and the top list."""
     from torch.profiler import ProfilerActivity, profile
@@ -264,13 +288,15 @@ def profile_path(engine, clip: np.ndarray, frames: int = 20):
 
     cfg = engine.cfg
     first = video_io.to_gray_train(clip[0], cfg.height, cfg.width)[None]
+    grays = [None if device_gray else video_io.to_gray_train(f, cfg.height, cfg.width)[None]
+             for f in clip[: frames + 1]]
 
     def run():
         state = engine.init(first)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for t in range(1, frames + 1):
-            state, out = engine.step(state, None, clip[None, t])
+            state, out = engine.step(state, grays[t], clip[None, t])
             out.warped_color.cpu()
         return (time.perf_counter() - t0) / frames * 1e3
 
@@ -1371,6 +1397,17 @@ def phase_metrics(card: str, dev, engine, clips: np.ndarray):
     Hs = fit_homographies(src, dst)
     Hs_cpu = fit_homographies(src.cpu(), dst.cpu())
     fit_gap = float((Hs.cpu() - Hs_cpu).abs().max() / Hs_cpu.abs().max())
+    # The fit's gap split by cause: the sums of its normal equations in
+    # float64 (rounded once to float32) on both devices, the solve as before.
+    import stabnet_tpu_torch.eval.metrics as metrics_module
+
+    f32_matmul = metrics_module._matmul
+    metrics_module._matmul = lambda a, b: f32_matmul(a.double(), b.double()).float()
+    try:
+        Hs64, Hs64_cpu = fit_homographies(src, dst), fit_homographies(src.cpu(), dst.cpu())
+    finally:
+        metrics_module._matmul = f32_matmul
+    fit_gap64 = float((Hs64.cpu() - Hs64_cpu).abs().max() / Hs64_cpu.abs().max())
     op_gaps = {name: abs(float(fn(Hs)) - float(fn(Hs.cpu())))
                for name, fn in (("stability_score", stability_score),
                                 ("distortion_score", distortion_score),
@@ -1386,6 +1423,10 @@ def phase_metrics(card: str, dev, engine, clips: np.ndarray):
           f"_global_shift equal {all(map(torch.equal, (s.cpu() for s in shift), shift_cpu))} "
           f"(need True); on equal inputs fit_homographies max rel {fit_gap:.3g}, "
           f"{ {k: float(f'{v:.3g}') for k, v in op_gaps.items()} }")
+    print(f"[12 fit split] fit_homographies card vs CPU on equal correspondences "
+          f"{tuple(dst.shape)}: max rel {fit_gap:.3g} with float32 sums, {fit_gap64:.3g} with "
+          f"the normal equations summed in float64 and rounded once (the solve in float32 "
+          f"on both): the order of the sums makes the difference, the solve the rest")
     check(flow_gap == 0.0, "metrics: the flow differs between card and CPU")
     check(all(map(torch.equal, (s.cpu() for s in shift), shift_cpu)),
           "metrics: the phase correlation differs between card and CPU")
@@ -1710,10 +1751,259 @@ def phase_weights_in(card: str, dev, clips: np.ndarray, tmp: str, data: str):
           f"{launches}, losses total {losses['total']:.6g}, img {losses['img1']:.6g}")
 
 
+# --- export, data parallelism and sharded serving ----------------------------
+
+def phase_export(card: str, dev, engine, clips: np.ndarray):
+    """The serving step exported at S=1 and, with a 4-frame segment, at
+    S=4; loaded from bytes and served against the live engine.  Returns the
+    launches of the exported S=1 clip and of the exported 4-clip batch."""
+    from stabnet_tpu_torch.ops import cuda_warp
+    from stabnet_tpu_torch.stream import DeployOptions, StreamDriver
+    from stabnet_tpu_torch.stream.export import (ExportedEngine, export_scan_segment,
+                                                 export_stream_step, load_artifact,
+                                                 save_artifact)
+
+    cfg, T, S, K = engine.cfg, clips.shape[1], clips.shape[0], 4
+    zero = {k: 0 for k in launch_counts()}
+    t0 = time.perf_counter()
+    step1 = export_stream_step(engine, CLIP_HW, streams=1)
+    t1 = time.perf_counter()
+    step4 = export_stream_step(engine, CLIP_HW, streams=S)
+    seg4 = export_scan_segment(engine, CLIP_HW, streams=S, segment=K)
+    t2 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "v2_93.stbx")
+        save_artifact(path, step1, cfg, CLIP_HW, 1, engine.refine, dev)
+        blob, meta = load_artifact(path)
+    check(blob == step1 and meta["format"] == "torch.export" and meta["device"] == "cuda",
+          f"artifact header {meta}")
+    t3 = time.perf_counter()
+    served = ExportedEngine(blob, cfg, CLIP_HW, streams=1, device=dev)
+    t4 = time.perf_counter()
+    served4 = ExportedEngine(step4, cfg, CLIP_HW, streams=S, scan_data=seg4, segment=K,
+                             device=dev)
+    t5 = time.perf_counter()
+
+    def same(a, b, what):
+        for x, y in zip(a, b):
+            check(np.array_equal(x.frames, y.frames) and np.array_equal(x.all_black, y.all_black)
+                  and x.crop_rect == y.crop_rect, f"{what}: not bit for bit")
+
+    live, art = (StreamDriver(e, DeployOptions()) for e in (engine, served))
+    runs = {}
+    for name in ("live", "exported", "exported", "live"):
+        driver = live if name == "live" else art
+        cuda_warp.reset_launch_counts()
+        res = driver.stabilize_clip(clips[0])
+        torch.cuda.synchronize()
+        runs.setdefault(name, []).append((res, launch_counts()))
+    want = zero | {"warp_mesh": T - 1, "warp_uint8_cf_lowres": T - 1}
+    for name, rs in runs.items():
+        for _, launches in rs:
+            check(launches == want, f"{name} S=1 launches {launches}, expected {want}")
+    same([r for r, _ in runs["exported"]], [r for r, _ in runs["live"]],
+         "exported vs live S=1 clip")
+    cuda_warp.reset_launch_counts()
+    got = StreamDriver(served4, DeployOptions()).stabilize_batch(list(clips))
+    torch.cuda.synchronize()
+    batch_launches = launch_counts()
+    steps = -(-(T - 1) // K) * K
+    want4 = zero | {"warp_mesh": steps, "warp_uint8_cf_lowres": steps}
+    check(batch_launches == want4, f"segment batch launches {batch_launches}, expected {want4}")
+    same(got, live.stabilize_batch(list(clips), chunk=K), "exported segment vs live chunked batch")
+    ops = {}
+    for name, e in (("live", engine), ("exported", served)):
+        wall, _, busy, per_frame, _ = profile_path(e, clips[0], frames=20, device_gray=False)
+        ops[name] = (wall, busy, per_frame)
+    lat = {n: ", ".join(f"{d['p50']:.3f}/{d['p90']:.3f}"
+                        for d in (stage_percentiles(r) for r, _ in rs))
+           for n, rs in runs.items()}
+    print(f"[16 export] {card} | {cfg.name} {cfg.compute_dtype} {CLIP_HW[0]}p: export S=1 step "
+          f"{t1 - t0:.2f} s ({len(step1)} B), S={S} step + {K}-frame segment {t2 - t1:.2f} s "
+          f"({len(step4)} + {len(seg4)} B); load from bytes S=1 {t4 - t3:.2f} s, S={S} with "
+          f"segment {t5 - t4:.2f} s; the {T}-frame clip through StreamDriver on the exported "
+          f"engine equal to the live one bit for bit (crop {runs['exported'][0][0].crop_rect}), "
+          f"launches {runs['exported'][0][1]}; the {S}-clip batch on the segment equal to the "
+          f"live batch chunked by {K}, launches {batch_launches}; net ms p50/p90 in turns "
+          f"live, exported, exported, live: live {lat['live']}, exported {lat['exported']}; "
+          f"host grays, 20 frames: " + "; ".join(
+              f"{n} wall {w:.3f} ms/frame, kernels {b:.3f} ms/frame, device operations "
+              f"{o:.1f}/frame" for n, (w, b, o) in ops.items()))
+    del served, served4
+    return runs["exported"][0][1], batch_launches
+
+
+DP_RANK = "_dp_rank"   # argv[1] of a rank process that phase 17 starts
+
+
+def dp_rank(mode: str, argv) -> int:
+    """One process of phase 17: the port's CLI with `argv`, then its kernel
+    launches as a JSON line.  `mode` "det" asks cuDNN for its deterministic
+    algorithms (two processes then compare bit for bit); "f32" turns TF32
+    off (the comparison in float32 that the CPU test makes)."""
+    from stabnet_tpu_torch.cli.main import main as cli
+
+    torch.backends.cudnn.deterministic = mode == "det"
+    torch.backends.cudnn.allow_tf32 = mode != "f32"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cli(argv)
+    torch.cuda.synchronize()
+    print("LAUNCHES " + json.dumps({"rank": int(os.environ.get("RANK", 0)),
+                                    **launch_counts()}), flush=True)
+    return 0
+
+
+def run_ranks(nproc, mode: str, argv, timeout: int = 300):
+    """`argv` through the CLI in `nproc` ranks under torch.distributed.run
+    (nproc None: one process without a launcher); returns each rank's
+    launches and the wall seconds."""
+    here = os.path.abspath(__file__)
+    cmd = [sys.executable, here, DP_RANK, mode, *argv]
+    if nproc is not None:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(nproc),
+               "--master-addr", "localhost", "--master-port", str(port), here, DP_RANK, mode,
+               *argv]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout,
+                          cwd=os.path.dirname(here))
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{' '.join(cmd[:8])}: exit {proc.returncode}\n"
+          f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    ranks = [json.loads(ln[len("LAUNCHES "):]) for ln in proc.stdout.splitlines()
+             if ln.startswith("LAUNCHES ")]
+    return sorted(ranks, key=lambda r: r.pop("rank")), wall
+
+
+def logged(log_dir: str):
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        return [r for r in map(json.loads, f) if r["tag"] == "train"]
+
+
+def phase_data_parallel(card: str, dev, tmp: str, data: str):
+    """`train --data-parallel` through the CLI on phase 8's shards, 2 steps:
+    (a) one NCCL rank against the plain run, v2_93 bf16 batch 10, bit for
+    bit; (b) two gloo ranks on the one card, global batch 10, against one
+    process on the merged batch, in f32 (TF32 off), within the CPU test's
+    bound.  Returns the launches of one rank of (b)."""
+    from stabnet_tpu_torch.data import augment
+    from stabnet_tpu_torch.data.pipeline import batch_iterator, ensure_flow
+    from stabnet_tpu_torch.parallel import form_global_batch
+    from stabnet_tpu_torch.train.state import create_train_state
+    from stabnet_tpu_torch.train.train import train_step
+
+    steps = 2
+    base = ["train", "--config", "v2_93", "--data", data, "--seed", "0", "--steps",
+            str(steps), "--set", "disp_freq=1", *TRAIN_LIVE]
+    per_rank = {k: 0 for k in launch_counts()} | {
+        "bilinear_sample": 2 * steps, "bilinear_splat": steps, "sample_map_grad": steps}
+
+    def args(name, *extra):
+        return base + ["--model-dir", os.path.join(tmp, name, "models"),
+                       "--log-dir", os.path.join(tmp, name, "log"), *extra]
+
+    out = {}
+    for name, nproc, mode, extra in (
+            ("plain", None, "det", ()),
+            ("nccl1", 1, "det", ("--data-parallel",)),
+            ("gloo2", 2, "f32", ("--data-parallel", "--set",
+                                 "compute_dtype=float32"))):
+        ranks, wall = run_ranks(nproc, mode, args(name, *extra))
+        check(ranks == [per_rank] * (nproc or 1),
+              f"{name}: launches per rank {ranks}, expected {per_rank}")
+        out[name] = (logged(os.path.join(tmp, name, "log")), wall)
+    keys = [k for k in out["plain"][0][0] if not k.endswith("_ms")]
+    vals = {n: [[r[k] for k in keys] for r in rows] for n, (rows, _) in out.items()}
+    check(vals["nccl1"] == vals["plain"], "one NCCL rank differs from the plain run: "
+          f"{vals['nccl1']} against {vals['plain']}")
+
+    # One process on the merged batch of the two ranks' local batches.
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = live_config(compute_dtype="float32")
+    state = create_train_state(cfg, device=dev, seed=0)
+    its = [batch_iterator(os.path.join(data, "train"), cfg, seed=0, batch_size=5,
+                          shard=(r, 2)) for r in range(2)]
+    gen = torch.Generator().manual_seed(0)
+    want, step_ms = [], []
+    for _ in range(steps):
+        raw = augment.prepare_raw(ensure_flow(form_global_batch([next(it) for it in its])))
+        batch = augment.augment_batch(
+            gen, {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, aux = train_step(state, batch, cfg)
+        want.append(float(aux["total"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.backends.cudnn.allow_tf32 = True
+    del state
+    got = [r["total"] for r in out["gloo2"][0]]
+    rel = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+    ms = {n: [round(r["step_ms"], 3) for r in rows] for n, (rows, _) in out.items()}
+    print(f"[17 data parallel] {card} | train --data-parallel through the CLI on phase 8's "
+          f"shards, {steps} steps, launches per rank {per_rank}: (a) v2_93 bf16 batch 10, "
+          f"one NCCL rank under torch.distributed.run equal to the plain run bit for bit "
+          f"(losses {[r['total'] for r in out['plain'][0]]}), step ms plain {ms['plain']}, NCCL rank {ms['nccl1']}, command wall "
+          f"{out['plain'][1]:.1f} and {out['nccl1'][1]:.1f} s; (b) f32 TF32 off, two gloo "
+          f"ranks on the one card (global batch 10, 5 each): losses {got} against one "
+          f"process on the merged batch {want}, max rel {rel:.3g} (need <= 3.4e-3), step ms "
+          f"rank 0 {ms['gloo2']}, one process {[round(v, 3) for v in step_ms]}, command "
+          f"wall {out['gloo2'][1]:.1f} s")
+    check(rel <= 3.4e-3, "two gloo ranks and one process on the merged batch disagree")
+    return per_rank
+
+
+def phase_sharded(card: str, dev, engine, clips: np.ndarray):
+    """Batch serving split over two replicas on the one card against each
+    shard alone, and over the card's one replica (the driver's default
+    devices) against the unsharded batch.  Returns the sharded run's
+    launches."""
+    from stabnet_tpu_torch.ops import cuda_warp
+    from stabnet_tpu_torch.stream import DeployOptions, StreamDriver
+
+    cfg, (S, T) = engine.cfg, clips.shape[:2]
+    grays = host_grays(clips, cfg)
+    cuda_warp.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warped, state = engine.stabilize_clips_sharded(grays, clips, devices=[dev, dev])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = launch_counts()
+    want = {k: 0 for k in launches} | {"warp_mesh": 2 * (T - 1),
+                                       "warp_uint8_cf_lowres": 2 * (T - 1)}
+    check(launches == want, f"sharded launches {launches}, expected {want}")
+    half = S // 2
+    for lo in (0, half):
+        alone, st = engine.stabilize_clip(grays[lo: lo + half], clips[lo: lo + half])
+        check(torch.equal(warped[lo: lo + half], alone)
+              and torch.equal(state.all_black[lo: lo + half], st.all_black),
+              f"shard {lo // half} differs from its own run at S={half}")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    driver = StreamDriver(engine, DeployOptions())
+    a = driver.stabilize_batch(list(clips), sharded=True)
+    b = driver.stabilize_batch(list(clips))
+    for x, y in zip(a, b):
+        check(np.array_equal(x.frames, y.frames) and np.array_equal(x.all_black, y.all_black)
+              and x.crop_rect == y.crop_rect, "sharded over the card's one replica differs")
+    print(f"[18 sharded] {card} | {cfg.name} {cfg.compute_dtype} {CLIP_HW[0]}p, {S} clips "
+          f"of {T} frames: "
+          f"stabilize_clips_sharded over two replicas on cuda:0 (interleaved steps) in "
+          f"{t1 - t0:.3f} s, launches {launches}, each shard bit for bit its own run at "
+          f"S={half} ({t2 - t1:.3f} s for both); stabilize_batch(sharded=True) over the "
+          f"card's one replica equal to the unsharded batch bit for bit, "
+          f"{a[0].fps_net:.2f} and {b[0].fps_net:.2f} frames/s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    if len(sys.argv) > 1 and sys.argv[1] == DP_RANK:
+        return dp_rank(sys.argv[2], sys.argv[3:])
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     card = phase_device()
@@ -1728,6 +2018,8 @@ def main() -> int:
     timed[("bilinear_sample", "(10, 288, 512, 3) edge-inclusive")] = flow_timed
     phase_metrics(card, dev, engine, clips)
     batch_launches = phase_serving_modes(card, dev, engine, clips)
+    export_launches, export_batch_launches = phase_export(card, dev, engine, clips)
+    sharded_launches = phase_sharded(card, dev, engine, clips)
     del engine, driver
     errs.update(phase_grad_kernels(gen, dev))
     with tempfile.TemporaryDirectory() as tmp:
@@ -1737,6 +2029,7 @@ def main() -> int:
         timed.update(train_timed)
         phase_flow_train(card, tmp, data, flowless_iter_ms)
         phase_weights_in(card, dev, clips, tmp, data)
+        dp_launches = phase_data_parallel(card, dev, tmp, data)
     # K2, K4 and K6b run on the training path: their launches are a
     # segment's, at the shapes of the K6 forward and of the backwards.
     kernels.insert(0, kernel_row("bilinear_sample", "stabnet_tpu/ops/pallas_warp.py:469",
@@ -1752,6 +2045,10 @@ def main() -> int:
         row["launches_train"] = train_launches[row["name"]]
         row["launches_flow"] = flow_launches[row["name"]]
         row["launches_batch"] = batch_launches[row["name"]]
+        row["launches_export"] = export_launches[row["name"]]
+        row["launches_export_batch"] = export_batch_launches[row["name"]]
+        row["launches_sharded"] = sharded_launches[row["name"]]
+        row["launches_data_parallel_rank"] = dp_launches[row["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

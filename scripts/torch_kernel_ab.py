@@ -12,7 +12,9 @@ under inference mode at S=1 and S=4, U the current frame as a view of the
 13-channel input stack, as the serving path hands it over (device time and
 time per call from the host; whatever chain the checkout runs); the
 serving step at S=1 (v2_93 bf16, random weights, 720p): device operations
-and kernel time per frame over 10 frames (chip_smoke.profile_path); K1 and K3
+and kernel time per frame over 10 frames and the wall time per frame over
+20 (chip_smoke.profile_path); K1 (device time and time per call from the
+host) and K3
 (where the checkout has it) at 720p S=1 and S=4 and at 1080p S=1; K4 at
 (10, 288, 512, 2) on the mesh maps with each pass's device time under
 torch.profiler.  Device times are medians of CUDA-graph replays
@@ -75,8 +77,13 @@ def one(label: str, root: str) -> dict:
     from stabnet_tpu_torch.stream import StreamEngine
 
     engine = StreamEngine(cs.random_model(V2_93, 0), V2_93, device=dev)
-    _, _, busy, ops, _ = cs.profile_path(engine, cs.make_clips(1, 11, cs.CLIP_HW)[0], frames=10)
+    clip = cs.make_clips(1, 21, cs.CLIP_HW)[0]
+    wall, _, busy, ops, _ = cs.profile_path(engine, clip, frames=10)
     res.update({"step S=1 kernel ms": busy, "step S=1 device ops per frame": ops})
+    # Host time per serving frame, the step's launches and its readback
+    # included, over 20 frames after 10 of warm-up (median of 3 runs).
+    res["step S=1 wall ms/frame"] = sorted(cs.profile_path(engine, clip, frames=20)[0]
+                                           for _ in range(3))[1]
     del engine
     for shape, S, hw in (("S=1 720p", 1, (720, 1280)), ("S=4 720p", 4, (720, 1280)),
                          ("S=1 1080p", 1, (1080, 1920))):
@@ -84,8 +91,9 @@ def one(label: str, root: str) -> dict:
         xm, ym = cs.realistic_maps(S, 288, 512, gen, dev)
         xs = resize_bilinear_bhw(xm, (72, 128)).contiguous()
         ys = resize_bilinear_bhw(ym, (72, 128)).contiguous()
-        res[f"K1 {shape}"] = cs.device_ms(
-            lambda: cuda_warp.warp_uint8_cf_lowres(imc, xs, ys, hw))
+        k1 = lambda: cuda_warp.warp_uint8_cf_lowres(imc, xs, ys, hw)
+        res[f"K1 {shape}"] = cs.device_ms(k1)
+        res[f"K1 {shape} call_ms"] = cs.call_ms(k1)
         if hasattr(cuda_warp, "warp_uint8_cf"):
             xf = resize_bilinear_bhw(xs, hw).contiguous()
             yf = resize_bilinear_bhw(ys, hw).contiguous()

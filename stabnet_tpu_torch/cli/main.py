@@ -7,14 +7,21 @@ Usage:
       [--refine N] [--output-size H W] [--device-gray] [--metrics] \
       [--infer-with-stable] [--infer-with-last] [--max-span N] \
       [--random-black SPEED] [--start-with-stable] [--deploy-vis] \
-      [--batch S [--batch-chunk T]] [--stream-chunk K] [--no-pipeline] \
-      [--device cuda|cpu]
+      [--batch S [--batch-chunk T | --batch-sharded]] [--stream-chunk K] \
+      [--no-pipeline] [--from-export ARTIFACT] [--device cuda|cpu]
+  python -m stabnet_tpu_torch.cli.main export --out ARTIFACT --config v2_93 \
+      [--model-dir DIR | --tf-checkpoint CKPT | --weights NPZ] [--streams S] \
+      [--refine N] [--segment K] [--output-size H W] [--device cuda|cpu] \
+      [--selftest]
   python -m stabnet_tpu_torch.cli.main make-synthetic --out data/train \
       --num 256 [--config tiny] [--seed 0]
   python -m stabnet_tpu_torch.cli.main train --config v2_93 --data data/ \
       [--model-dir DIR] [--log-dir DIR] [--restore] [--imagenet-ckpt CKPT] \
       [--steps N] [--set key=value ...] [--seed 0] [--tensorboard] \
-      [--compute-flow] [--device cuda|cpu]
+      [--compute-flow] [--data-parallel] \
+      [--device cuda|cpu]
+  python -m torch.distributed.run --nproc-per-node N \
+      -m stabnet_tpu_torch.cli.main train --data-parallel ...
   python -m stabnet_tpu_torch.cli.main evaluate --output out.avi \
       [--input in.avi] [--config v2_93] [--max-frames 120] [--device cuda|cpu]
   python -m stabnet_tpu_torch.cli.main convert-ckpt --tf-checkpoint model-80000 \
@@ -40,6 +47,17 @@ variables keyed by "/"-joined paths, models/convert.py), else seeded random
 weights with the theta head scaled by 0.05.  `convert-ckpt` writes a TF
 checkpoint as `<out>/0/state.pt`, a fresh training state at step 0 that
 `stabilize --model-dir` and `train --restore` read.
+
+`train --data-parallel` is one process per card under
+`torch.distributed.run` (without a launcher, one process is a world of
+one): each rank trains on its share of the global batch `batch_size`, with
+BatchNorm's statistics and the gradients reduced over the ranks (NCCL
+where each rank has a card of its own, gloo where ranks share a card and on
+the CPU).  `stabilize --batch S --batch-sharded` splits the S clips over every
+local card, one model replica each.  `export` writes the serving step, its
+weights baked in, as a `torch.export` artifact for the device it was traced
+on (with `--segment K` also K steps unrolled); `stabilize --from-export`
+serves from it.
 """
 
 from __future__ import annotations
@@ -94,6 +112,52 @@ def build_engine(config: str, weights=None, refine: int = 1, output_size=None,
                         device=device)
 
 
+def build_exported_engine(args, output_size):
+    """The engine of `stabilize --from-export`, with the JAX package's
+    checks of the flags against the artifact's header
+    (stabnet_tpu/cli/main.py:204-258)."""
+    import torch
+
+    from stabnet_tpu_torch.config import get_config
+    from stabnet_tpu_torch.stream.export import ExportedEngine, load_artifact
+
+    if (args.infer_with_stable or args.infer_with_last or args.max_span > 1
+            or args.random_black is not None):
+        raise SystemExit(
+            "--from-export serves the production path; the history ablations "
+            "need a live engine (--model-dir/--tf-checkpoint/--weights)")
+    if args.device_gray:
+        raise SystemExit("--device-gray needs a live engine: export artifacts bake "
+                         "the (state, gray, color) step signature")
+    try:
+        data, meta = load_artifact(args.from_export)
+    except ValueError as e:
+        raise SystemExit(f"--from-export: {e}")
+    if meta["device"] != torch.device(args.device).type:
+        raise SystemExit(f"the artifact was traced for {meta['device']}; a "
+                         f"torch.export program runs on the device it was traced "
+                         f"on: pass --device {meta['device']} or re-export")
+    if output_size and tuple(meta["out_hw"]) != output_size:
+        raise SystemExit(f"--output-size {output_size} conflicts with the artifact's "
+                         f"baked {tuple(meta['out_hw'])}; re-export for a different "
+                         f"size or drop the flag")
+    if args.refine is not None and meta["refine"] != args.refine:
+        raise SystemExit(f"--refine {args.refine} conflicts with the artifact's "
+                         f"baked refine={meta['refine']}; re-export or drop the flag")
+    streams = meta["streams"]
+    if args.batch > 1 and streams != args.batch:
+        raise SystemExit(f"artifact baked for {streams} streams; use --batch {streams}")
+    if args.batch <= 1 and streams != 1:
+        raise SystemExit(f"artifact baked for {streams} streams; pass --batch "
+                         f"{streams} to serve it, or export with --streams 1")
+    step_len = meta.get("step_len")
+    engine = ExportedEngine(data[:step_len], get_config(meta["config"]), meta["out_hw"],
+                            streams=streams,
+                            scan_data=data[step_len:] if step_len is not None else None,
+                            segment=meta.get("segment"), device=args.device)
+    return engine, meta
+
+
 def _print_scores(res, name, cfg, device):
     from stabnet_tpu_torch.eval import score_stabilized_clip
 
@@ -111,11 +175,18 @@ def cmd_stabilize(args):
         raise SystemExit("--stream-chunk is the single-clip constant-memory "
                          "path; it keeps no frames in host RAM, so --batch "
                          "and --metrics are incompatible with it")
-    engine = build_engine(args.config, args.weights, args.refine, output_size,
-                          args.device, model_dir=args.model_dir,
-                          tf_checkpoint=args.tf_checkpoint)
+    if args.batch_sharded and args.batch <= 1:
+        raise SystemExit("--batch-sharded splits a --batch of S clips over the cards")
+    refine = args.refine if args.refine is not None else 1
+    if args.from_export:
+        engine, meta = build_exported_engine(args, output_size)
+        output_size, refine = tuple(meta["out_hw"]), meta["refine"]
+    else:
+        engine = build_engine(args.config, args.weights, refine, output_size,
+                              args.device, model_dir=args.model_dir,
+                              tf_checkpoint=args.tf_checkpoint)
     driver = StreamDriver(engine, DeployOptions(
-        refine=args.refine, max_span=args.max_span,
+        refine=refine, max_span=args.max_span,
         infer_with_stable=args.infer_with_stable,
         infer_with_last=args.infer_with_last,
         start_with_stable=args.start_with_stable,
@@ -167,7 +238,8 @@ def _stabilize_batched(args, driver, videos):
         chunk = driver.reconcile_chunk(args.batch_chunk)
     except ValueError as e:
         raise SystemExit(f"--batch-chunk: {e}")
-    auto_chunk = chunk is None
+    auto_chunk = (chunk is None and not args.batch_sharded
+                  and hasattr(driver.engine, "continue_clip"))
     failures = 0
     for lo in range(0, len(videos), args.batch):
         group = videos[lo: lo + args.batch]
@@ -193,7 +265,8 @@ def _stabilize_batched(args, driver, videos):
             chunk = min(64, max(len(c) for c in clips) - 1)
             auto_chunk = False
         try:
-            results = driver.stabilize_batch(clips, chunk=chunk, pad_streams=args.batch)
+            results = driver.stabilize_batch(clips, chunk=chunk, sharded=args.batch_sharded,
+                                             pad_streams=args.batch)
         except Exception as e:
             failures += len(clips)
             print(f"error: batch {names}: {e}", file=sys.stderr)
@@ -213,15 +286,44 @@ def _stabilize_batched(args, driver, videos):
         sys.exit(1)
 
 
+def _rank_device(device: str):
+    """A data-parallel rank's device and process-group backend: its local
+    rank's card for "cuda" (ranks past the card count share cards) and
+    NCCL, or gloo where ranks share a card, which NCCL refuses; the CPU
+    with gloo otherwise."""
+    import torch
+
+    from stabnet_tpu_torch.utils import resolve_device
+
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return dev, "gloo"
+    cards = torch.cuda.device_count()
+    if dev.index is None:
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)) % cards)
+    torch.cuda.set_device(dev)
+    shared = int(os.environ.get("LOCAL_WORLD_SIZE", 1)) > cards
+    return dev, "gloo" if shared else "nccl"
+
+
 def cmd_train(args):
     import logging
 
     from stabnet_tpu_torch.config import apply_overrides, get_config
     from stabnet_tpu_torch.data.pipeline import InputPipeline
+    from stabnet_tpu_torch.parallel import (MultiHostPipeline, initialize_distributed,
+                                            process_index_count)
     from stabnet_tpu_torch.train.checkpoint import latest_step
     from stabnet_tpu_torch.train.loop import train
 
-    logging.basicConfig(level=logging.INFO, format="%(message)s")
+    device = args.device
+    if args.data_parallel:
+        # Under torch.distributed.run; a world of one without a launcher.
+        device, backend = _rank_device(args.device)
+        initialize_distributed(backend=backend)
+    main_rank = process_index_count()[0] == 0
+    logging.basicConfig(level=logging.INFO if main_rank else logging.WARNING,
+                        format="%(message)s")
     cfg = apply_overrides(get_config(args.config), args.set)
     if args.model_dir:
         cfg = cfg.replace(model_dir=args.model_dir)
@@ -231,22 +333,30 @@ def cmd_train(args):
     # a restored segment continues with fresh batches, and counts the steps
     # before the temporal-loss gate opens, which need no TV-L1 solve.
     resume_step = (latest_step(cfg.model_dir) or 0) if args.restore else 0
-    train_it = InputPipeline(os.path.join(args.data, "train"), cfg,
-                             seed=args.seed, start_step=resume_step,
-                             device=args.device, compute_flow=args.compute_flow,
-                             flow_from_step=cfg.do_temp_loss_iter)
+    # Each rank of --data-parallel reads its residue class of the records
+    # and augments its share of the global batch (parallel/multihost.py).
+    pipeline = MultiHostPipeline if args.data_parallel else InputPipeline
+    train_it = pipeline(os.path.join(args.data, "train"), cfg,
+                        seed=args.seed, start_step=resume_step,
+                        device=device, compute_flow=args.compute_flow,
+                        flow_from_step=cfg.do_temp_loss_iter)
     test_dir = os.path.join(args.data, "test")
-    test_it = (InputPipeline(test_dir, cfg, seed=args.seed + 1, device=args.device,
-                             compute_flow=args.compute_flow)
+    test_it = (pipeline(test_dir, cfg, seed=args.seed + 1, device=device,
+                        compute_flow=args.compute_flow)
                if os.path.isdir(test_dir) else None)
     try:
         train(cfg, train_it, test_it, restore=args.restore, num_steps=args.steps,
-              seed=args.seed, tensorboard=args.tensorboard, device=args.device,
+              seed=args.seed, tensorboard=args.tensorboard, device=device,
               imagenet_ckpt=args.imagenet_ckpt)
     finally:
         for it in (train_it, test_it):
             if it is not None:
                 it.close()
+        if args.data_parallel:
+            import torch.distributed as dist
+
+            if dist.is_initialized():
+                dist.destroy_process_group()
 
 
 def cmd_evaluate(args):
@@ -298,6 +408,43 @@ def cmd_convert_ckpt(args):
     print(f"converted {args.tf_checkpoint} -> {args.out}")
 
 
+def cmd_export(args):
+    """The serving step (and with --segment, K steps unrolled), weights
+    baked in, as a self-describing `torch.export` artifact."""
+    import time
+
+    import numpy as np
+
+    from stabnet_tpu_torch.stream.export import (ExportedEngine, export_scan_segment,
+                                                 export_stream_step, load_artifact,
+                                                 save_artifact)
+
+    out_hw = tuple(args.output_size)
+    engine = build_engine(args.config, args.weights, args.refine, out_hw, args.device,
+                          model_dir=args.model_dir, tf_checkpoint=args.tf_checkpoint)
+    t0 = time.perf_counter()
+    data = export_stream_step(engine, out_hw, streams=args.streams)
+    scan_data = (export_scan_segment(engine, out_hw, args.streams, args.segment)
+                 if args.segment else None)
+    save_artifact(args.out, data, engine.cfg, out_hw, args.streams, args.refine,
+                  engine.device, scan_data=scan_data, segment=args.segment)
+    total = len(data) + (len(scan_data) if scan_data else 0)
+    print(f"exported {total / 1e6:.1f} MB -> {args.out} in "
+          f"{time.perf_counter() - t0:.1f} s (device {engine.device.type})"
+          + (f" (+{args.segment}-frame segment)" if scan_data else ""))
+    if args.selftest:
+        blob, meta = load_artifact(args.out)
+        step_len = meta.get("step_len")
+        served = ExportedEngine(blob[:step_len], engine.cfg, out_hw, streams=args.streams,
+                                device=args.device)
+        S, (Ho, Wo) = args.streams, out_hw
+        gray = np.zeros((S, engine.cfg.height, engine.cfg.width), np.float32)
+        _, out = served.step(served.init(gray), gray, np.zeros((S, Ho, Wo, 3), np.uint8))
+        if tuple(out.warped_color.shape) != (S, Ho, Wo, 3):
+            raise SystemExit(f"selftest: warped_color {tuple(out.warped_color.shape)}")
+        print("selftest: the loaded artifact ran one step")
+
+
 def cmd_make_synthetic(args):
     from stabnet_tpu_torch.config import get_config
     from stabnet_tpu_torch.data.records import write_synthetic_dataset
@@ -334,6 +481,10 @@ def main(argv=None):
                         "(TV-L1, stabnet_tpu_torch.ops.flow) instead of reading "
                         "it from the record shards; required for shards "
                         "without a flow field")
+    p.add_argument("--data-parallel", action="store_true",
+                   help="one rank of data-parallel training: run under "
+                        "`python -m torch.distributed.run --nproc-per-node N`; "
+                        "each rank takes batch_size / N examples")
     p.add_argument("--device", default="cuda", help=DEVICE_HELP)
     p.set_defaults(fn=cmd_train)
 
@@ -363,7 +514,9 @@ def main(argv=None):
     p.add_argument("--max-span", type=int, default=1)
     p.add_argument("--random-black", type=int, default=None)
     p.add_argument("--start-with-stable", action="store_true")
-    p.add_argument("--refine", type=int, default=1)
+    # Default None (= 1), so an explicit --refine can be checked against an
+    # artifact's baked value.
+    p.add_argument("--refine", type=int, default=None)
     p.add_argument("--deploy-vis", action="store_true",
                    help="write 2x2 diagnostic mosaics to output-vis/<name>.avi")
     p.add_argument("--output-size", type=int, nargs=2, default=None,
@@ -380,6 +533,11 @@ def main(argv=None):
     p.add_argument("--batch-chunk", type=int, default=None, metavar="T",
                    help="scan the time axis in T-frame segments (bounded "
                         "device memory for long clips)")
+    p.add_argument("--batch-sharded", action="store_true",
+                   help="split the batch over every local card, one model "
+                        "replica each (S divisible by the card count)")
+    p.add_argument("--from-export", default=None, metavar="ARTIFACT",
+                   help="serve from an `export` artifact (production path only)")
     p.add_argument("--stream-chunk", type=int, default=None, metavar="K",
                    help="constant-host-memory file serving: read, stabilize "
                         "and write K frames at a time (production path only)")
@@ -389,6 +547,28 @@ def main(argv=None):
                         "results are identical either way)")
     p.add_argument("--device", default="cuda", help=DEVICE_HELP)
     p.set_defaults(fn=cmd_stabilize)
+
+    p = sub.add_parser("export",
+                       help="the serving step, weights baked in, as a "
+                            "torch.export artifact")
+    p.add_argument("--out", required=True)
+    p.add_argument("--config", default="v2_93")
+    p.add_argument("--model-dir", default=None)
+    p.add_argument("--tf-checkpoint", default=None)
+    p.add_argument("--weights", default=None, metavar="NPZ")
+    p.add_argument("--streams", type=int, default=1)
+    p.add_argument("--refine", type=int, default=1)
+    p.add_argument("--segment", type=int, default=None, metavar="K",
+                   help="also bake K steps unrolled into the artifact: batch "
+                        "and chunked serving then run K frames per call")
+    p.add_argument("--output-size", type=int, nargs=2, default=[720, 1280],
+                   metavar=("H", "W"))
+    p.add_argument("--device", default="cuda",
+                   help="the device to trace on, which the artifact then runs "
+                        "on (cuda or cpu)")
+    p.add_argument("--selftest", action="store_true",
+                   help="load the artifact and run one step on zeros")
+    p.set_defaults(fn=cmd_export)
 
     p = sub.add_parser("evaluate",
                        help="stability/cropping/distortion scores for a "

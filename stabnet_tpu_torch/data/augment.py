@@ -181,7 +181,8 @@ def add_history_masks(Hs: torch.Tensor, history: torch.Tensor,
 # --- full augmentation ---------------------------------------------------------
 
 def augment_batch(generator: torch.Generator, raw: Dict[str, torch.Tensor],
-                  cfg: StabNetConfig) -> Dict[str, torch.Tensor]:
+                  cfg: StabNetConfig, part: Tuple[int, int] = (0, 1)
+                  ) -> Dict[str, torch.Tensor]:
     """Raw batch (tensors on the device) -> Siamese training batch.
 
     Raw layout (records.py, mirroring get_data_mini_after.py:178-226):
@@ -193,13 +194,18 @@ def augment_batch(generator: torch.Generator, raw: Dict[str, torch.Tensor],
       matches1, matches2: (B, max_matches, 4); mask1, mask2: (B, max_matches).
 
     Returns x1, y1, x2, y2, flow, matches1, mask1, matches2, mask2 with x*
-    of shape (B, H, W, in_channels).  The draws come from `generator`.
+    of shape (B, H, W, in_channels).  The draws come from `generator`;
+    with `part=(index, count)` they are drawn for a global batch of count *
+    B examples, and this batch is its index-th slice (a data-parallel rank's
+    share, parallel/multihost.py).
     """
     B = raw["stable"].shape[0]
     dev = raw["stable"].device
     bc = cfg.before_ch
-    p = draw_params(generator, cfg, B).to(dev)
-    Hs = rand_homography(generator, cfg, (2, B, bc)).to(dev)
+    index, count = part
+    mine = slice(index * B, (index + 1) * B)
+    p = AugParams(*(t[mine] for t in draw_params(generator, cfg, B * count))).to(dev)
+    Hs = rand_homography(generator, cfg, (2, B * count, bc))[:, mine].to(dev)
 
     def to_model_scale(a):
         # uint8 records (4x cheaper upload); model scale is [-0.5, 0.5]

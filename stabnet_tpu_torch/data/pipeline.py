@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,14 +26,18 @@ from stabnet_tpu_torch.ops import flow as flow_ops
 from stabnet_tpu_torch.utils import resolve_device
 
 
-def batch_iterator(path: str, cfg: StabNetConfig,
-                   seed: int = 0) -> Iterator[Dict[str, np.ndarray]]:
-    """Yield raw host batches of cfg.batch_size examples, shuffled, epoch
-    after epoch."""
+def batch_iterator(path: str, cfg: StabNetConfig, seed: int = 0,
+                   batch_size: Optional[int] = None,
+                   shard: Optional[Tuple[int, int]] = None
+                   ) -> Iterator[Dict[str, np.ndarray]]:
+    """Yield raw host batches of `batch_size` (default cfg.batch_size)
+    examples, shuffled, epoch after epoch; `shard` as `iterate_examples`
+    takes it."""
+    batch_size = batch_size or cfg.batch_size
     buf = []
-    for ex in iterate_examples(path, epochs=10 ** 6, shuffle=True, seed=seed):
+    for ex in iterate_examples(path, epochs=10 ** 6, shuffle=True, seed=seed, shard=shard):
         buf.append(ex)
-        if len(buf) == cfg.batch_size:
+        if len(buf) == batch_size:
             yield {k: np.stack([e[k] for e in buf]) for k in buf[0]}
             buf = []
 
@@ -122,19 +126,26 @@ class InputPipeline:
     AUGMENTED stable pair, computed in the prefetch thread.  Batches
     consumed before step `flow_from_step` (batch n feeds step
     `start_step + n`) carry the zero-motion map instead: the temporal loss
-    that reads the flow is gated to zero until `cfg.do_temp_loss_iter`."""
+    that reads the flow is gated to zero until `cfg.do_temp_loss_iter`.
+
+    `shard=(rank, world)` makes it one rank's pipeline of data-parallel
+    training (parallel/multihost.py): the rank's residue class of the
+    records, and its slice of the draws of the global batch of
+    `batch_size * world` examples."""
 
     def __init__(self, path: str, cfg: StabNetConfig, seed: int = 0,
                  start_step: int = 0, device=None, compute_flow: bool = False,
-                 flow_from_step: int = 0):
+                 flow_from_step: int = 0, batch_size: Optional[int] = None,
+                 shard: Tuple[int, int] = (0, 1)):
         dev = resolve_device(device)
         gen = torch.Generator().manual_seed(seed * 1_000_003 + start_step)
 
         def device_batches():
-            for n, raw in enumerate(batch_iterator(path, cfg, seed=seed + start_step)):
+            for n, raw in enumerate(batch_iterator(path, cfg, seed=seed + start_step,
+                                                   batch_size=batch_size, shard=shard)):
                 raw = augment.prepare_raw(ensure_flow(raw, compute_flow))
                 batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
-                batch = augment.augment_batch(gen, batch, cfg)
+                batch = augment.augment_batch(gen, batch, cfg, part=shard)
                 if compute_flow:
                     batch = add_flow(batch, start_step + n >= flow_from_step)
                 yield batch

@@ -10,7 +10,7 @@ get_data_mini_after.py:158-163).
 from __future__ import annotations
 
 import os
-from typing import Dict, Iterator, List, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -48,18 +48,27 @@ def read_shard(shard_path: str) -> Dict[str, np.ndarray]:
 
 
 def iterate_examples(path: str, epochs: int = 1, shuffle: bool = True,
-                     seed: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+                     seed: int = 0, shard: Optional[Tuple[int, int]] = None
+                     ) -> Iterator[Dict[str, np.ndarray]]:
     """Stream single raw examples across shards, shuffled per epoch (shard
-    order, then example order, from one RandomState(seed))."""
+    order, then example order, from one RandomState(seed)).
+
+    `shard=(index, count)` keeps the examples whose position in that stream
+    is index (mod count): every rank walks the same order and keeps its own
+    residue class, so the classes are disjoint and together the stream
+    (stabnet_tpu/data/records.py:58-68)."""
     shards = list_shards(path)
     rng = np.random.RandomState(seed)
+    pos = 0
     for _ in range(epochs):
         order = rng.permutation(len(shards)) if shuffle else np.arange(len(shards))
         for si in order:
             data = read_shard(shards[si])
             n = data["stable"].shape[0]
             for i in (rng.permutation(n) if shuffle else np.arange(n)):
-                yield {k: v[i] for k, v in data.items()}
+                if shard is None or pos % shard[1] == shard[0]:
+                    yield {k: v[i] for k, v in data.items()}
+                pos += 1
 
 
 def write_synthetic_dataset(path: str, cfg: StabNetConfig, num_examples: int,

@@ -30,7 +30,8 @@ same values and saves the cast at every frame.
 Training mode (`model.train()`) gives BatchNorm Flax's training branch:
 normalize with the biased batch variance, statistics reduced in fp32, and
 running statistics updated as ra <- 0.997 ra + 0.003 batch, with the biased
-variance too.
+variance too.  In a process group of several ranks (data parallelism) the
+statistics are the global batch's, summed over the ranks.
 """
 
 from __future__ import annotations
@@ -60,6 +61,8 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, BN_EPS)
+        if _ranks() > 1:
+            return self._forward_across_ranks(x)
         # torch normalizes with the biased batch variance, as Flax does, but
         # moves running_var towards the UNBIASED one: rv' = (1-m) rv + m v n/(n-1).
         # Flax wants (1-m) rv + m v = rv' (n-1)/n + (1-m) rv / n, exactly.
@@ -73,6 +76,59 @@ class BatchNorm(nn.Module):
             self.running_mean.copy_(mean)
             self.running_var.mul_((1.0 - m) / n).add_(var * ((n - 1) / n))
         return y
+
+    def _forward_across_ranks(self, x):
+        """Training statistics of the GLOBAL batch, as the JAX package's
+        SPMD step computes them (stabnet_tpu/train/train.py:185-198): the
+        per-channel count, sum and sum of squares, in fp32, summed over the
+        ranks by one differentiable all-reduce; Flax's biased variance
+        E[x^2] - E[x]^2 and its running update."""
+        xf = x.float()
+        dims = [d for d in range(x.dim()) if d != 1]
+        count = torch.full((1,), x.numel() // x.shape[1], dtype=torch.float32,
+                           device=x.device)
+        stats = _SumOverRanks.apply(torch.cat([xf.sum(dims), (xf * xf).sum(dims), count]))
+        C = x.shape[1]
+        n = stats[2 * C]
+        mean = stats[:C] / n
+        var = torch.clamp(stats[C: 2 * C] / n - mean * mean, min=0.0)
+        shape = (1, C) + (1,) * (x.dim() - 2)
+        scale = torch.rsqrt(var + BN_EPS) * self.weight
+        y = (xf - mean.reshape(shape)) * scale.reshape(shape) + self.bias.reshape(shape)
+        with torch.no_grad():
+            self.running_mean.copy_(BN_MOMENTUM * self.running_mean
+                                    + (1.0 - BN_MOMENTUM) * mean)
+            self.running_var.copy_(BN_MOMENTUM * self.running_var
+                                   + (1.0 - BN_MOMENTUM) * var)
+        return y.to(x.dtype)
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """The sum of a tensor over the ranks; its gradient on each rank is the
+    sum of the ranks' gradients (every rank's loss reads the sum)."""
+
+    @staticmethod
+    def forward(ctx, t):
+        import torch.distributed as dist
+
+        t = t.clone()
+        dist.all_reduce(t)
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        g = g.clone()
+        dist.all_reduce(g)
+        return g
+
+
+def _ranks() -> int:
+    """The ranks of the active process group, 1 without one."""
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
 
 class Conv(nn.Module):

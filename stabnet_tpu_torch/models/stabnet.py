@@ -54,6 +54,13 @@ def forward(model: StabNetRegressor, x: torch.Tensor,
     on CUDA (`ops.warp.transformer`): the dense maps, the black mask and
     the sample, the current frame read in place from `x`'s last channel.
     """
+    return forward_traceable(model, x, cfg)
+
+
+def forward_traceable(model: StabNetRegressor, x: torch.Tensor,
+                      cfg: StabNetConfig) -> StabNetOutput:
+    """`forward`'s body outside inference mode, which `torch.export` cannot
+    trace through (stream/export.py traces it under `torch.no_grad`)."""
     theta = model(x)
     mesh = theta_to_mesh(theta, cfg.grid_h, cfg.grid_w, cfg.do_crop_rate)
     cur = current_frame(x, cfg).to(getattr(torch, cfg.warp_dtype))

@@ -20,12 +20,19 @@ K5  `bilinear_sample_const_maps` and K6 `bilinear_sample_const_image`
     replace the custom VJPs of pallas_warp.py:878 and :916: autograd
     Functions with K2 forward and K4 or K6b backward.
 
-Each wrapper runs its plain PyTorch version when its tensors lie on the CPU,
-and only then.  On CUDA tensors it launches its kernel on the current stream
-or raises; nothing falls back.  Every launch adds one to the wrapper's
-`launches` attribute, so a run can show that it went through the kernel.
-The kernels reproduce the plain versions' arithmetic operation for
-operation, so the two agree bit for bit (see the notes in csrc/).
+Each entry point is a `torch.library` custom op, `torch.ops.stabnet.<name>`,
+so `torch.export` keeps it in a traced graph as one call: its "cpu"
+implementation is the plain PyTorch version, its "cuda" implementation the
+kernel's launch on the current stream, and a fake implementation gives the
+output's shape and dtype to tracers.  The dispatcher picks the
+implementation by the tensors' device: the plain version runs on CPU
+tensors and only there; on CUDA tensors the kernel launches or raises, and
+nothing falls back.  The public functions below check their arguments and
+call the op.  Every launch adds one to the public function's `launches`
+attribute, so a run can show that it went through the kernel, the ops of an
+exported program included.  The kernels reproduce the plain versions'
+arithmetic operation for operation, so the two agree bit for bit (see the
+notes in csrc/).
 
 No kernel wrapper carries a gradient: each raises when gradient mode is on
 and an input requires grad, on every device, so code that trains on the CPU
@@ -95,6 +102,13 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     return False
+
+
+def _on_card(*tensors: torch.Tensor) -> None:
+    """A kernel launches only on tensors that all lie on one CUDA device
+    (the dispatcher picks the CUDA implementation if any of them does)."""
+    if _on_cpu(*tensors):
+        raise ValueError("a CUDA kernel was handed CPU tensors")
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -197,21 +211,18 @@ def bilinear_sample_plain(im: torch.Tensor, x_ndc: torch.Tensor,
     return out.reshape(out_shape + (C,))
 
 
-def bilinear_sample(im: torch.Tensor, x_ndc: torch.Tensor, y_ndc: torch.Tensor,
-                    strict_edge: bool = True) -> torch.Tensor:
-    """K2: `bilinear_sample_plain` as one CUDA kernel (plain version on CPU).
+@torch.library.custom_op(
+    "stabnet::bilinear_sample", mutates_args=(), device_types="cpu",
+    schema="(Tensor im, Tensor x_ndc, Tensor y_ndc, bool strict_edge) -> Tensor")
+def _bilinear_sample_op(im, x_ndc, y_ndc, strict_edge):
+    return bilinear_sample_plain(im, x_ndc, y_ndc, strict_edge)
 
-    im: (B, H, W, C) float32, maps (B, Ho, Wo) float32, all contiguous.
-    """
-    _no_grad_inputs("bilinear_sample", im, x_ndc, y_ndc)
-    _require(im.dim() == 4 and x_ndc.dim() == 3,
-             f"image must be (B, H, W, C) and maps (B, Ho, Wo), got "
-             f"{tuple(im.shape)}, {tuple(x_ndc.shape)}")
-    B, H, W, C = (int(v) for v in im.shape)
-    Ho, Wo = int(x_ndc.shape[1]), int(x_ndc.shape[2])
-    _check_index_range("bilinear_sample", (H, W), B, -(-Ho // 8), H * W * C, Ho * Wo * C)
-    if _on_cpu(im, x_ndc, y_ndc):
-        return bilinear_sample_plain(im, x_ndc, y_ndc, strict_edge)
+
+@_bilinear_sample_op.register_kernel("cuda")
+def _bilinear_sample_cuda(im, x_ndc, y_ndc, strict_edge):
+    _on_card(im, x_ndc, y_ndc)
+    B, H, W, C = im.shape
+    _, Ho, Wo = x_ndc.shape
     _require(im.dtype == torch.float32, f"image must be float32, got {im.dtype}")
     _require(im.is_contiguous(), "image must be contiguous")
     _check_maps(x_ndc, y_ndc, B)
@@ -224,6 +235,29 @@ def bilinear_sample(im: torch.Tensor, x_ndc: torch.Tensor, y_ndc: torch.Tensor,
     _launch_check(err, "bilinear_sample")
     bilinear_sample.launches += 1
     return out
+
+
+@_bilinear_sample_op.register_fake
+def _bilinear_sample_fake(im, x_ndc, y_ndc, strict_edge):
+    return im.new_empty(tuple(x_ndc.shape) + (im.shape[3],), dtype=torch.float32)
+
+
+def bilinear_sample(im: torch.Tensor, x_ndc: torch.Tensor, y_ndc: torch.Tensor,
+                    strict_edge: bool = True) -> torch.Tensor:
+    """K2: `bilinear_sample_plain` as one CUDA kernel (plain version on CPU),
+    through `torch.ops.stabnet.bilinear_sample`.
+
+    im: (B, H, W, C) float32, maps (B, Ho, Wo) float32, all contiguous.
+    """
+    _no_grad_inputs("bilinear_sample", im, x_ndc, y_ndc)
+    _require(im.dim() == 4 and x_ndc.dim() == 3,
+             f"image must be (B, H, W, C) and maps (B, Ho, Wo), got "
+             f"{tuple(im.shape)}, {tuple(x_ndc.shape)}")
+    B, H, W, C = (int(v) for v in im.shape)
+    Ho, Wo = int(x_ndc.shape[1]), int(x_ndc.shape[2])
+    _check_index_range("bilinear_sample", (H, W), B, -(-Ho // 8), H * W * C, Ho * Wo * C)
+    _on_cpu(im, x_ndc, y_ndc)
+    return torch.ops.stabnet.bilinear_sample(im, x_ndc, y_ndc, bool(strict_edge))
 
 
 bilinear_sample.launches = 0
@@ -262,34 +296,23 @@ def warp_mesh_plain(im: torch.Tensor, Hs: torch.Tensor, tables
     return bilinear_sample_plain(im, x, y), black, x, y
 
 
-def warp_mesh(im: torch.Tensor, Hs: torch.Tensor, tables
-              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K2m: `warp_mesh_plain` as one CUDA kernel (plain version on CPU).
+@torch.library.custom_op(
+    "stabnet::warp_mesh", mutates_args=(), device_types="cpu",
+    schema="(Tensor im, Tensor Hs, Tensor gx, Tensor gy, Tensor cell_col, "
+           "Tensor cell_row) -> (Tensor, Tensor, Tensor, Tensor)")
+def _warp_mesh_op(im, Hs, gx, gy, cell_col, cell_row):
+    return warp_mesh_plain(im, Hs, (gx, gy, cell_col, cell_row))
 
-    im: (B, H, W, 1) float32 at any strides (the current frame is read in
-    place from the input stack); Hs: (B, grid_h, grid_w, 3, 3) float32
-    contiguous; tables as `warp_mesh_plain` takes them.
-    """
-    _no_grad_inputs("warp_mesh", im, Hs)
-    _require(im.dim() == 4 and im.shape[-1] == 1,
-             f"warp_mesh: frames must be (B, H, W, 1), got {tuple(im.shape)}")
-    B, H, W = (int(v) for v in im.shape[:3])
-    _require(Hs.dim() == 5 and Hs.shape[0] == B and tuple(Hs.shape[3:]) == (3, 3),
-             f"warp_mesh: homographies must be (B, grid_h, grid_w, 3, 3) of the "
-             f"frames' batch {B}, got {tuple(Hs.shape)}")
-    grid_h, grid_w = int(Hs.shape[1]), int(Hs.shape[2])
-    _require(1 <= grid_h <= H and 1 <= grid_w <= W,
-             f"warp_mesh: a {grid_h} x {grid_w} mesh on {H} x {W} frames (no more "
-             f"cells than pixels along a side)")
-    frame_span = (H - 1) * im.stride(1) + (W - 1) * im.stride(2) + 1
-    _check_index_range("warp_mesh", (H, W), B, -(-H // 8), H * W, frame_span)
-    if _on_cpu(im, Hs, *tables):
-        return warp_mesh_plain(im, Hs, tables)
+
+@_warp_mesh_op.register_kernel("cuda")
+def _warp_mesh_cuda(im, Hs, gx, gy, cell_col, cell_row):
+    _on_card(im, Hs, gx, gy, cell_col, cell_row)
+    B, H, W, _ = im.shape
+    grid_h, grid_w = Hs.shape[1], Hs.shape[2]
     _require(im.dtype == torch.float32 and Hs.dtype == torch.float32,
              f"warp_mesh: frames and homographies must be float32, got {im.dtype}, "
              f"{Hs.dtype}")
     _require(Hs.is_contiguous(), "warp_mesh: homographies must be contiguous")
-    gx, gy, cell_col, cell_row = tables
     for t, n, dtype in ((gx, W, torch.float32), (gy, H, torch.float32),
                         (cell_col, W, torch.int32), (cell_row, H, torch.int32)):
         _require(tuple(t.shape) == (n,) and t.dtype == dtype and t.is_contiguous(),
@@ -310,6 +333,39 @@ def warp_mesh(im: torch.Tensor, Hs: torch.Tensor, tables
     _launch_check(err, "warp_mesh")
     warp_mesh.launches += 1
     return out, black, x_map, y_map
+
+
+@_warp_mesh_op.register_fake
+def _warp_mesh_fake(im, Hs, gx, gy, cell_col, cell_row):
+    B, H, W, _ = im.shape
+    return (im.new_empty((B, H, W, 1), dtype=torch.float32),
+            *(im.new_empty((B, H, W), dtype=torch.float32) for _ in range(3)))
+
+
+def warp_mesh(im: torch.Tensor, Hs: torch.Tensor, tables
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2m: `warp_mesh_plain` as one CUDA kernel (plain version on CPU),
+    through `torch.ops.stabnet.warp_mesh` (the tables as four tensors).
+
+    im: (B, H, W, 1) float32 at any strides (the current frame is read in
+    place from the input stack); Hs: (B, grid_h, grid_w, 3, 3) float32
+    contiguous; tables as `warp_mesh_plain` takes them.
+    """
+    _no_grad_inputs("warp_mesh", im, Hs)
+    _require(im.dim() == 4 and im.shape[-1] == 1,
+             f"warp_mesh: frames must be (B, H, W, 1), got {tuple(im.shape)}")
+    B, H, W = (int(v) for v in im.shape[:3])
+    _require(Hs.dim() == 5 and Hs.shape[0] == B and tuple(Hs.shape[3:]) == (3, 3),
+             f"warp_mesh: homographies must be (B, grid_h, grid_w, 3, 3) of the "
+             f"frames' batch {B}, got {tuple(Hs.shape)}")
+    grid_h, grid_w = int(Hs.shape[1]), int(Hs.shape[2])
+    _require(1 <= grid_h <= H and 1 <= grid_w <= W,
+             f"warp_mesh: a {grid_h} x {grid_w} mesh on {H} x {W} frames (no more "
+             f"cells than pixels along a side)")
+    frame_span = (H - 1) * im.stride(1) + (W - 1) * im.stride(2) + 1
+    _check_index_range("warp_mesh", (H, W), B, -(-H // 8), H * W, frame_span)
+    _on_cpu(im, Hs, *tables)
+    return torch.ops.stabnet.warp_mesh(im, Hs, *tables)
 
 
 warp_mesh.launches = 0
@@ -346,18 +402,18 @@ def warp_uint8_cf_plain(imc: torch.Tensor, x_ndc: torch.Tensor,
     return torch.clamp(torch.round(warped), 0, 255).to(torch.uint8)
 
 
-def warp_uint8_cf(imc: torch.Tensor, x_ndc: torch.Tensor,
-                  y_ndc: torch.Tensor) -> torch.Tensor:
-    """K3: `warp_uint8_cf_plain` as one CUDA kernel (plain on CPU).
+@torch.library.custom_op(
+    "stabnet::warp_uint8_cf", mutates_args=(), device_types="cpu",
+    schema="(Tensor imc, Tensor x_ndc, Tensor y_ndc) -> Tensor")
+def _warp_uint8_cf_op(imc, x_ndc, y_ndc):
+    return warp_uint8_cf_plain(imc, x_ndc, y_ndc)
 
-    imc: (B, C, H, W) uint8 contiguous, 1 <= C <= 4; maps (B, Ho, Wo)
-    float32 contiguous.  K1's kernel body, reading full-resolution maps.
-    """
-    _no_grad_inputs("warp_uint8_cf", imc, x_ndc, y_ndc)
-    _require(x_ndc.dim() == 3, f"maps must be (B, Ho, Wo), got {tuple(x_ndc.shape)}")
-    B, C, H, W, Ho, Wo = _check_frames("warp_uint8_cf", imc, x_ndc.shape[1:])
-    if _on_cpu(imc, x_ndc, y_ndc):
-        return warp_uint8_cf_plain(imc, x_ndc, y_ndc)
+
+@_warp_uint8_cf_op.register_kernel("cuda")
+def _warp_uint8_cf_cuda(imc, x_ndc, y_ndc):
+    _on_card(imc, x_ndc, y_ndc)
+    B, C, H, W = imc.shape
+    _, Ho, Wo = x_ndc.shape
     _check_frames_on_card(imc)
     _check_maps(x_ndc, y_ndc, B)
     out = torch.empty((B, Ho, Wo, C), dtype=torch.uint8, device=imc.device)
@@ -369,6 +425,26 @@ def warp_uint8_cf(imc: torch.Tensor, x_ndc: torch.Tensor,
     _launch_check(err, "warp_uint8_cf")
     warp_uint8_cf.launches += 1
     return out
+
+
+@_warp_uint8_cf_op.register_fake
+def _warp_uint8_cf_fake(imc, x_ndc, y_ndc):
+    return imc.new_empty(tuple(x_ndc.shape) + (imc.shape[1],), dtype=torch.uint8)
+
+
+def warp_uint8_cf(imc: torch.Tensor, x_ndc: torch.Tensor,
+                  y_ndc: torch.Tensor) -> torch.Tensor:
+    """K3: `warp_uint8_cf_plain` as one CUDA kernel (plain on CPU), through
+    `torch.ops.stabnet.warp_uint8_cf`.
+
+    imc: (B, C, H, W) uint8 contiguous, 1 <= C <= 4; maps (B, Ho, Wo)
+    float32 contiguous.  K1's kernel body, reading full-resolution maps.
+    """
+    _no_grad_inputs("warp_uint8_cf", imc, x_ndc, y_ndc)
+    _require(x_ndc.dim() == 3, f"maps must be (B, Ho, Wo), got {tuple(x_ndc.shape)}")
+    _check_frames("warp_uint8_cf", imc, x_ndc.shape[1:])
+    _on_cpu(imc, x_ndc, y_ndc)
+    return torch.ops.stabnet.warp_uint8_cf(imc, x_ndc, y_ndc)
 
 
 warp_uint8_cf.launches = 0
@@ -387,10 +463,23 @@ def warp_uint8_cf_lowres_plain(imc: torch.Tensor, x_ndc_lr: torch.Tensor,
     return warp_uint8_cf_plain(imc, xs, ys)
 
 
+@torch.library.custom_op(
+    "stabnet::warp_uint8_cf_lowres", mutates_args=(), device_types="cpu",
+    schema="(Tensor imc, Tensor x_ndc_lr, Tensor y_ndc_lr, int[] out_hw) -> Tensor")
+def _warp_uint8_cf_lowres_op(imc, x_ndc_lr, y_ndc_lr, out_hw):
+    return warp_uint8_cf_lowres_plain(imc, x_ndc_lr, y_ndc_lr, tuple(out_hw))
+
+
+@_warp_uint8_cf_lowres_op.register_fake
+def _warp_uint8_cf_lowres_fake(imc, x_ndc_lr, y_ndc_lr, out_hw):
+    return imc.new_empty((imc.shape[0], *out_hw, imc.shape[1]), dtype=torch.uint8)
+
+
 def warp_uint8_cf_lowres(imc: torch.Tensor, x_ndc_lr: torch.Tensor,
                          y_ndc_lr: torch.Tensor,
                          out_hw: Tuple[int, int]) -> torch.Tensor:
-    """K1: `warp_uint8_cf_lowres_plain` as one CUDA kernel (plain on CPU).
+    """K1: `warp_uint8_cf_lowres_plain` as one CUDA kernel (plain on CPU),
+    through `torch.ops.stabnet.warp_uint8_cf_lowres`.
 
     imc: (B, C, H, W) uint8 contiguous, 1 <= C <= 4; maps (B, h, w) float32
     contiguous.
@@ -399,8 +488,18 @@ def warp_uint8_cf_lowres(imc: torch.Tensor, x_ndc_lr: torch.Tensor,
     B, C, H, W, Ho, Wo = _check_frames("warp_uint8_cf_lowres", imc, out_hw)
     _check_index_range("warp_uint8_cf_lowres", (H, W), B, 1,
                        int(x_ndc_lr.shape[-2]) * int(x_ndc_lr.shape[-1]))
-    if _on_cpu(imc, x_ndc_lr, y_ndc_lr):
-        return warp_uint8_cf_lowres_plain(imc, x_ndc_lr, y_ndc_lr, out_hw)
+    _on_cpu(imc, x_ndc_lr, y_ndc_lr)
+    return torch.ops.stabnet.warp_uint8_cf_lowres(imc, x_ndc_lr, y_ndc_lr, [Ho, Wo])
+
+
+warp_uint8_cf_lowres.launches = 0
+
+
+@_warp_uint8_cf_lowres_op.register_kernel("cuda")
+def _warp_uint8_cf_lowres_cuda(imc, x_ndc_lr, y_ndc_lr, out_hw):
+    _on_card(imc, x_ndc_lr, y_ndc_lr)
+    B, C, H, W = imc.shape
+    Ho, Wo = out_hw
     _check_frames_on_card(imc)
     _check_maps(x_ndc_lr, y_ndc_lr, B)
     _, h, w = x_ndc_lr.shape
@@ -418,9 +517,6 @@ def warp_uint8_cf_lowres(imc: torch.Tensor, x_ndc_lr: torch.Tensor,
     _launch_check(err, "warp_uint8_cf_lowres")
     warp_uint8_cf_lowres.launches += 1
     return out
-
-
-warp_uint8_cf_lowres.launches = 0
 
 
 # --- the clamped-corner geometry shared by the adjoints' plain versions -------
@@ -492,20 +588,18 @@ def bilinear_splat_plain(g: torch.Tensor, x_ndc: torch.Tensor,
     return torch.where(torch.isfinite(peak), out, math.nan)
 
 
-def bilinear_splat(g: torch.Tensor, x_ndc: torch.Tensor, y_ndc: torch.Tensor,
-                   im_hw: Tuple[int, int]) -> torch.Tensor:
-    """K4: `bilinear_splat_plain` as one CUDA kernel call (three passes;
-    plain version on CPU).  g (B, Ho, Wo, C) float32, maps (B, Ho, Wo)
-    float32, all contiguous, 1 <= C <= 4."""
-    _no_grad_inputs("bilinear_splat", g, x_ndc, y_ndc)
-    _require(g.dim() == 4, f"cotangent must be (B, Ho, Wo, C), got {tuple(g.shape)}")
-    B, Ho, Wo, C = (int(v) for v in g.shape)
-    H, W = (int(v) for v in im_hw)
-    _require(H > 0 and W > 0, f"bad image size {im_hw}")
-    _require(1 <= C <= 4, f"bilinear_splat: 1 to 4 channels, got {C}")
-    _check_index_range("bilinear_splat", (H, W), B, -(-Ho // 32), C * H * W, C * Ho * Wo)
-    if _on_cpu(g, x_ndc, y_ndc):
-        return bilinear_splat_plain(g, x_ndc, y_ndc, im_hw)
+@torch.library.custom_op(
+    "stabnet::bilinear_splat", mutates_args=(), device_types="cpu",
+    schema="(Tensor g, Tensor x_ndc, Tensor y_ndc, int[] im_hw) -> Tensor")
+def _bilinear_splat_op(g, x_ndc, y_ndc, im_hw):
+    return bilinear_splat_plain(g, x_ndc, y_ndc, tuple(im_hw))
+
+
+@_bilinear_splat_op.register_kernel("cuda")
+def _bilinear_splat_cuda(g, x_ndc, y_ndc, im_hw):
+    _on_card(g, x_ndc, y_ndc)
+    B, Ho, Wo, C = g.shape
+    H, W = im_hw
     _require(g.dtype == torch.float32, f"cotangent must be float32, got {g.dtype}")
     _require(g.is_contiguous(), "cotangent must be contiguous")
     _check_maps(x_ndc, y_ndc, B)
@@ -524,6 +618,28 @@ def bilinear_splat(g: torch.Tensor, x_ndc: torch.Tensor, y_ndc: torch.Tensor,
     _launch_check(err, "bilinear_splat")
     bilinear_splat.launches += 1
     return out
+
+
+@_bilinear_splat_op.register_fake
+def _bilinear_splat_fake(g, x_ndc, y_ndc, im_hw):
+    return g.new_empty((g.shape[0], *im_hw, g.shape[3]), dtype=torch.float32)
+
+
+def bilinear_splat(g: torch.Tensor, x_ndc: torch.Tensor, y_ndc: torch.Tensor,
+                   im_hw: Tuple[int, int]) -> torch.Tensor:
+    """K4: `bilinear_splat_plain` as one CUDA kernel call (three passes;
+    plain version on CPU), through `torch.ops.stabnet.bilinear_splat`.
+    g (B, Ho, Wo, C) float32, maps (B, Ho, Wo) float32, all contiguous,
+    1 <= C <= 4."""
+    _no_grad_inputs("bilinear_splat", g, x_ndc, y_ndc)
+    _require(g.dim() == 4, f"cotangent must be (B, Ho, Wo, C), got {tuple(g.shape)}")
+    B, Ho, Wo, C = (int(v) for v in g.shape)
+    H, W = (int(v) for v in im_hw)
+    _require(H > 0 and W > 0, f"bad image size {im_hw}")
+    _require(1 <= C <= 4, f"bilinear_splat: 1 to 4 channels, got {C}")
+    _check_index_range("bilinear_splat", (H, W), B, -(-Ho // 32), C * H * W, C * Ho * Wo)
+    _on_cpu(g, x_ndc, y_ndc)
+    return torch.ops.stabnet.bilinear_splat(g, x_ndc, y_ndc, [H, W])
 
 
 bilinear_splat.launches = 0
@@ -558,15 +674,16 @@ def sample_map_grad_plain(im: torch.Tensor, x_ndc: torch.Tensor,
             (sy * (H / 2.0)).reshape(y_ndc.shape))
 
 
-def sample_map_grad(im: torch.Tensor, x_ndc: torch.Tensor, y_ndc: torch.Tensor,
-                    g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K6b: `sample_map_grad_plain` as one CUDA kernel (plain on CPU).
-    im (B, H, W, C), maps (B, Ho, Wo), g (B, Ho, Wo, C), all float32 and
-    contiguous."""
-    _no_grad_inputs("sample_map_grad", im, x_ndc, y_ndc, g)
-    _check_index_range("sample_map_grad", im.shape[1:3])
-    if _on_cpu(im, x_ndc, y_ndc, g):
-        return sample_map_grad_plain(im, x_ndc, y_ndc, g)
+@torch.library.custom_op(
+    "stabnet::sample_map_grad", mutates_args=(), device_types="cpu",
+    schema="(Tensor im, Tensor x_ndc, Tensor y_ndc, Tensor g) -> (Tensor, Tensor)")
+def _sample_map_grad_op(im, x_ndc, y_ndc, g):
+    return sample_map_grad_plain(im, x_ndc, y_ndc, g)
+
+
+@_sample_map_grad_op.register_kernel("cuda")
+def _sample_map_grad_cuda(im, x_ndc, y_ndc, g):
+    _on_card(im, x_ndc, y_ndc, g)
     for name, t in (("image", im), ("cotangent", g)):
         _require(t.dtype == torch.float32, f"{name} must be float32, got {t.dtype}")
         _require(t.dim() == 4 and t.is_contiguous(),
@@ -586,6 +703,23 @@ def sample_map_grad(im: torch.Tensor, x_ndc: torch.Tensor, y_ndc: torch.Tensor,
     _launch_check(err, "sample_map_grad")
     sample_map_grad.launches += 1
     return gx, gy
+
+
+@_sample_map_grad_op.register_fake
+def _sample_map_grad_fake(im, x_ndc, y_ndc, g):
+    return (x_ndc.new_empty(x_ndc.shape, dtype=torch.float32),
+            y_ndc.new_empty(y_ndc.shape, dtype=torch.float32))
+
+
+def sample_map_grad(im: torch.Tensor, x_ndc: torch.Tensor, y_ndc: torch.Tensor,
+                    g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6b: `sample_map_grad_plain` as one CUDA kernel (plain on CPU),
+    through `torch.ops.stabnet.sample_map_grad`.  im (B, H, W, C), maps
+    (B, Ho, Wo), g (B, Ho, Wo, C), all float32 and contiguous."""
+    _no_grad_inputs("sample_map_grad", im, x_ndc, y_ndc, g)
+    _check_index_range("sample_map_grad", im.shape[1:3])
+    _on_cpu(im, x_ndc, y_ndc, g)
+    return torch.ops.stabnet.sample_map_grad(im, x_ndc, y_ndc, g)
 
 
 sample_map_grad.launches = 0

@@ -22,6 +22,8 @@ import functools
 import numpy as np
 import torch
 
+from stabnet_tpu_torch.utils import device_constant
+
 
 def solve_dlt(src: torch.Tensor, dst: torch.Tensor, eps: float = 1e-4) -> torch.Tensor:
     """Solve for homographies mapping 4 src points to 4 dst points.
@@ -81,7 +83,7 @@ def cell_src_corners(grid_h: int, grid_w: int) -> np.ndarray:
 def _device_src_corners(grid_h: int, grid_w: int, device: torch.device) -> torch.Tensor:
     # Cached on the device: a per-frame upload from pageable host memory
     # would make the host wait for the device's queue.
-    return torch.from_numpy(cell_src_corners(grid_h, grid_w)).to(device)
+    return device_constant(cell_src_corners(grid_h, grid_w), device)
 
 
 def mesh_cell_corners(mesh: torch.Tensor) -> torch.Tensor:

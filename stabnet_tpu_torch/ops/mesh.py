@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from stabnet_tpu_torch.ops.homography import mesh_cell_corners
+from stabnet_tpu_torch.utils import device_constant
 
 
 @functools.lru_cache(maxsize=None)
@@ -30,7 +31,7 @@ def base_mesh(grid_h: int, grid_w: int) -> np.ndarray:
 def _device_base_mesh(grid_h: int, grid_w: int, device: torch.device) -> torch.Tensor:
     # Cached on the device: a per-frame upload from pageable host memory
     # would make the host wait for the device's queue.
-    return torch.from_numpy(base_mesh(grid_h, grid_w)).to(device)
+    return device_constant(base_mesh(grid_h, grid_w), device)
 
 
 def theta_to_mesh(theta: torch.Tensor, grid_h: int, grid_w: int,

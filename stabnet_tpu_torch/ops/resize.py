@@ -17,6 +17,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from stabnet_tpu_torch.utils import device_constant
+
 
 @functools.lru_cache(maxsize=None)
 def resize_matrix(n_in: int, n_out: int) -> np.ndarray:
@@ -54,7 +56,7 @@ def resize_taps(n_in: int, n_out: int) -> Tuple[np.ndarray, ...]:
 def device_taps(n_in: int, n_out: int, device: torch.device) -> Tuple[torch.Tensor, ...]:
     """`resize_taps` as tensors on `device`, cached: the indexing below and
     kernel K1 read them every frame."""
-    return tuple(torch.from_numpy(a).to(device) for a in resize_taps(n_in, n_out))
+    return tuple(device_constant(a, device) for a in resize_taps(n_in, n_out))
 
 
 def resize_bilinear_bhw(m: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:

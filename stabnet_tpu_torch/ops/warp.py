@@ -35,6 +35,7 @@ import torch
 from stabnet_tpu_torch.ops import cuda_warp
 from stabnet_tpu_torch.ops import homography as hom
 from stabnet_tpu_torch.ops.cuda_warp import bilinear_sample_plain as bilinear_sample
+from stabnet_tpu_torch.utils import device_constant
 
 __all__ = ["WarpResult", "MeshTables", "mesh_tables", "dense_maps", "black_mask",
            "bilinear_sample", "transformer"]
@@ -92,19 +93,19 @@ def mesh_tables(height: int, width: int, grid_h: int, grid_w: int,
     `device`, cached: the serving warp reads them every frame."""
     arrays = (_ndc_axis(width), _ndc_axis(height), _cell_axis(width, grid_w),
               _cell_axis(height, grid_h))
-    return MeshTables(*(torch.from_numpy(a).to(device) for a in arrays))
+    return MeshTables(*(device_constant(a, device) for a in arrays))
 
 
 @functools.lru_cache(maxsize=None)
 def _device_grid(height: int, width: int, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(_ndc_grid(height, width)).to(device)
+    return device_constant(_ndc_grid(height, width), device)
 
 
 @functools.lru_cache(maxsize=None)
 def _device_cell_ids(height: int, width: int, grid_h: int, grid_w: int,
                      device: torch.device) -> torch.Tensor:
     ids = _cell_id_map(height, width, grid_h, grid_w).reshape(-1)
-    return torch.from_numpy(ids).long().to(device)
+    return device_constant(ids.astype(np.int64), device)
 
 
 def dense_maps(Hs: torch.Tensor, height: int, width: int

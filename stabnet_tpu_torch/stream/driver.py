@@ -329,8 +329,9 @@ class StreamDriver:
           chunk: scan the time axis in segments of this many frames (bounded
             device memory for long clips; the tail is padded with invalid
             steps).  None = one scan over the whole padded length.
-          sharded: sharding over several cards comes with the port's
-            Parallel slice; True raises.
+          sharded: split the S clips over every local card, one model
+            replica each (`StreamEngine.stabilize_clips_sharded`; S must
+            divide among them); not with `chunk`.
           pad_streams: pad the stream count up to this value with dummy
             all-invalid streams (their compute is lock-step overhead, their
             results are dropped), so every group has the same shapes.
@@ -346,10 +347,17 @@ class StreamDriver:
                 "batch mode serves the production path; history ablations, "
                 "--start-with-stable, and --deploy-vis need the per-frame "
                 "loop (drop --batch)")
-        if sharded:
-            raise ValueError("sharded batch serving (several cards) comes with "
-                             "the port's Parallel slice; serve on one card")
-        chunk = self.reconcile_chunk(chunk)
+        if sharded and chunk is not None:
+            raise ValueError("chunked batch serving is a single-device path; "
+                             "use one of chunk/sharded")
+        if sharded and not hasattr(self.engine, "stabilize_clips_sharded"):
+            raise ValueError("sharded batch serving needs a live engine")
+        if not sharded:
+            chunk = self.reconcile_chunk(chunk)
+        if chunk is not None and not hasattr(self.engine, "continue_clip"):
+            raise ValueError("chunked batch serving needs a live engine or an "
+                             "artifact exported with --segment (plain artifacts "
+                             "step frame by frame)")
         n_real = len(clips)
         if n_real < 1:
             raise ValueError("empty batch")
@@ -392,7 +400,9 @@ class StreamDriver:
 
         with timers.stage("scan"):
             if chunk is None:
-                warped, state = self.engine.stabilize_clip(grays, colors, valid=valid)
+                scan = (self.engine.stabilize_clips_sharded if sharded
+                        else self.engine.stabilize_clip)
+                warped, state = scan(grays, colors, valid=valid)
                 warped_np = warped.cpu().numpy()          # (S, T-1, Ho, Wo, 3)
             else:
                 state = self.engine.init(grays[:, 0])
@@ -437,6 +447,9 @@ class StreamDriver:
                 "(drop --stream-chunk)")
         if chunk < 1:
             raise ValueError(f"stream_chunk must be >= 1, got {chunk}")
+        if not hasattr(self.engine, "continue_clip"):
+            raise ValueError("streaming file serving needs a live engine or an "
+                             "artifact exported with --segment")
         return self.reconcile_chunk(chunk)
 
     def stabilize_stream(self, reader, writer, chunk: int,

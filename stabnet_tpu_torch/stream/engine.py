@@ -29,7 +29,7 @@ import torch
 
 from stabnet_tpu_torch.config import StabNetConfig
 from stabnet_tpu_torch.models.resnet import cast_weights
-from stabnet_tpu_torch.models.stabnet import forward
+from stabnet_tpu_torch.models.stabnet import forward_traceable
 from stabnet_tpu_torch.ops import cuda_warp
 from stabnet_tpu_torch.ops.crop import max_clear_rect
 from stabnet_tpu_torch.ops.resize import resize_bilinear_bhw as resize_bilinear
@@ -120,6 +120,22 @@ def warp_color(color: torch.Tensor, x_map: torch.Tensor, y_map: torch.Tensor,
                                           ys.contiguous(), tuple(out_hw))
 
 
+def _net_step(model, x: torch.Tensor, cur_color: torch.Tensor, cfg: StabNetConfig,
+              refine: int, out_hw: Tuple[int, int]):
+    """The step's body from its input stack on: the net's refine passes,
+    the value the ring keeps (the output with its black border at -1) and
+    the color warp.  Shared by the live step and the exported one."""
+    passes = max(refine, 1)
+    for k in range(passes):
+        warp = forward_traceable(model, x, cfg).warp
+        if k + 1 < passes:
+            fed_back = warp.output[..., 0] + warp.black_pix * (-1.0)
+            x = torch.cat([x[..., :-1], fed_back[..., None]], dim=-1)
+    kept = warp.output[..., 0] + warp.black_pix * (-1.0)
+    warped = warp_color(cur_color, warp.x_map, warp.y_map, out_hw)
+    return warp, kept, warped
+
+
 @torch.inference_mode()
 def stream_step(model, state: StreamState, cur_gray: Optional[torch.Tensor],
                 cur_color: torch.Tensor, cfg: StabNetConfig, refine: int = 1,
@@ -146,26 +162,83 @@ def stream_step(model, state: StreamState, cur_gray: Optional[torch.Tensor],
         x = torch.cat([history_override.float(), cur_gray.float()[..., None]],
                       dim=-1)
 
-    passes = max(refine, 1)
-    for k in range(passes):
-        warp = forward(model, x, cfg).warp
-        if k + 1 < passes:
-            fed_back = warp.output[..., 0] + warp.black_pix * (-1.0)
-            x = torch.cat([x[..., :-1], fed_back[..., None]], dim=-1)
-
-    out_gray = warp.output[..., 0]
+    warp, kept, warped = _net_step(model, x, cur_color, cfg, refine,
+                                   out_hw or tuple(cur_color.shape[2:4]))
     black = warp.black_pix
     slot = state.ptr % state.frames.shape[1]
-    state.frames[:, slot] = out_gray + black * (-1.0)
+    state.frames[:, slot] = kept
     state.masks[:, slot] = black
     state.all_black.add_(torch.round(black).to(torch.int32))
     new_state = state._replace(ptr=state.ptr + 1)
-
-    warped = warp_color(cur_color, warp.x_map, warp.y_map,
-                        out_hw or tuple(cur_color.shape[2:4]))
-    return new_state, StepOutput(output_gray=out_gray, black=black,
+    return new_state, StepOutput(output_gray=warp.output[..., 0], black=black,
                                  x_map=warp.x_map, y_map=warp.y_map,
                                  warped_color=warped, input_gray=cur_gray)
+
+
+def functional_step(model, state: StreamState, cur_gray: torch.Tensor,
+                    cur_color: torch.Tensor, cfg: StabNetConfig, refine: int,
+                    out_hw: Tuple[int, int], valid: Optional[torch.Tensor] = None
+                    ) -> Tuple[StreamState, StepOutput]:
+    """`stream_step` as a pure function of a state whose `ptr` is a 0-d
+    int64 tensor, for `torch.export` (stream/export.py): the history is
+    gathered with `index_select` at (ptr - i) % L and the slot is written
+    by an out-of-place `index_copy`, so the returned state is new and the
+    given one untouched.  Gathers and copies are exact, so the values are
+    `stream_step`'s.  `valid`, an optional (S,) bool tensor, keeps a
+    stream's slot and crop accumulator where it is False (the device-side
+    form of `scan_frames`' mask).  No ablation override, no device gray.
+    """
+    L = state.frames.shape[1]
+    ptr = state.ptr
+    offsets = torch.tensor([i for i in cfg.indices if i > 0], device=ptr.device)
+    slots = (ptr - offsets) % L
+    rings = ([state.masks] if cfg.input_mask else []) + [state.frames]
+    x = torch.cat([ring.index_select(1, slots) for ring in rings]
+                  + [cur_gray.float()[:, None]], dim=1).permute(0, 2, 3, 1)
+
+    warp, kept, warped = _net_step(model, x, cur_color, cfg, refine, out_hw)
+    black = warp.black_pix
+    slot = (ptr % L).reshape(1)
+    add = torch.round(black).to(torch.int32)
+    if valid is not None:
+        keep = valid[:, None, None]
+        kept = torch.where(keep, kept, state.frames.index_select(1, slot)[:, 0])
+        black_kept = torch.where(keep, black, state.masks.index_select(1, slot)[:, 0])
+        add = torch.where(keep, add, 0)
+    else:
+        black_kept = black
+    new_state = StreamState(
+        frames=state.frames.index_copy(1, slot, kept[:, None]),
+        masks=state.masks.index_copy(1, slot, black_kept[:, None]),
+        ptr=ptr + 1, all_black=state.all_black + add)
+    return new_state, StepOutput(output_gray=warp.output[..., 0], black=black,
+                                 x_map=warp.x_map, y_map=warp.y_map,
+                                 warped_color=warped, input_gray=cur_gray)
+
+
+def _scan_steps(model, state: StreamState, clip_gray: torch.Tensor,
+                clip_color: torch.Tensor, cfg: StabNetConfig, refine: int,
+                out_hw: Tuple[int, int], valid: Optional[np.ndarray]):
+    """`scan_frames` one step at a time: yields (warped (S, Ho, Wo, 3),
+    state) after each step, so several scans can be issued interleaved."""
+    # One whole-clip transpose to channels-first: no layout change per frame.
+    color_cf = clip_color.permute(0, 1, 4, 2, 3).contiguous()
+    for t in range(clip_gray.shape[1]):
+        keep = None
+        if valid is not None and not bool(np.all(valid[:, t])):
+            keep = torch.as_tensor(np.asarray(valid[:, t], bool),
+                                   device=clip_gray.device)
+            slot = state.ptr % state.frames.shape[1]
+            old = (state.frames[:, slot].clone(), state.masks[:, slot].clone(),
+                   state.all_black.clone())
+        state, out = stream_step(model, state, clip_gray[:, t], color_cf[:, t],
+                                 cfg, refine=refine, out_hw=out_hw)
+        if keep is not None:
+            k3 = keep[:, None, None]
+            state.frames[:, slot] = torch.where(k3, state.frames[:, slot], old[0])
+            state.masks[:, slot] = torch.where(k3, state.masks[:, slot], old[1])
+            state.all_black.copy_(torch.where(k3, state.all_black, old[2]))
+        yield out.warped_color, state
 
 
 @torch.inference_mode()
@@ -189,25 +262,10 @@ def scan_frames(model, state: StreamState, clip_gray: torch.Tensor,
       (warped, final_state): warped (S, T', Ho, Wo, 3) uint8.
     """
     out_hw = out_hw or tuple(clip_color.shape[2:4])
-    # One whole-clip transpose to channels-first: no layout change per frame.
-    color_cf = clip_color.permute(0, 1, 4, 2, 3).contiguous()
     warped = []
-    for t in range(clip_gray.shape[1]):
-        keep = None
-        if valid is not None and not bool(np.all(valid[:, t])):
-            keep = torch.as_tensor(np.asarray(valid[:, t], bool),
-                                   device=clip_gray.device)
-            slot = state.ptr % state.frames.shape[1]
-            old = (state.frames[:, slot].clone(), state.masks[:, slot].clone(),
-                   state.all_black.clone())
-        state, out = stream_step(model, state, clip_gray[:, t], color_cf[:, t],
-                                 cfg, refine=refine, out_hw=out_hw)
-        if keep is not None:
-            k3 = keep[:, None, None]
-            state.frames[:, slot] = torch.where(k3, state.frames[:, slot], old[0])
-            state.masks[:, slot] = torch.where(k3, state.masks[:, slot], old[1])
-            state.all_black.copy_(torch.where(k3, state.all_black, old[2]))
-        warped.append(out.warped_color)
+    for w, state in _scan_steps(model, state, clip_gray, clip_color, cfg, refine,
+                                out_hw, valid):
+        warped.append(w)
     return torch.stack(warped, dim=1), state
 
 
@@ -246,6 +304,7 @@ class StreamEngine:
         self.cfg = cfg
         self.refine = refine
         self.out_hw = out_hw
+        self._replicas = {}   # device list -> one model replica per device
 
     def _put(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a)).to(self.device)
@@ -290,6 +349,55 @@ class StreamEngine:
         return scan_frames(self.model, state, self._put(clip_gray),
                            self._put(clip_color), self.cfg, refine=self.refine,
                            out_hw=self.out_hw, valid=valid)
+
+    @torch.inference_mode()
+    def stabilize_clips_sharded(self, clip_gray: np.ndarray, clip_color: np.ndarray,
+                                devices=None, valid: Optional[np.ndarray] = None
+                                ) -> Tuple[torch.Tensor, StreamState]:
+        """`stabilize_clip` with the S clips split over `devices` (default:
+        every local card, `parallel.data_devices`; a CPU engine's own CPU
+        device, as the JAX package's CPU backend has one), one replica per
+        device (its own copy of the cast weights, made once).  Each clip's
+        recurrence is independent, so shards share nothing.  Step t is
+        issued on every replica before step t+1, so the cards overlap; each
+        shard computes what `stabilize_clip` computes on it alone at S /
+        len(devices) streams.  Returns (warped (S, T-1, Ho, Wo, 3), state)
+        gathered on the first device.  The JAX package's
+        `stabilize_clips_sharded` (stabnet_tpu/stream/engine.py:460-511).
+        """
+        from stabnet_tpu_torch.parallel import data_devices, replicated, shard_batch
+
+        devs = data_devices(devices if devices is not None or self.device.type == "cuda"
+                            else [self.device])
+        S = clip_gray.shape[0]
+        if S % len(devs):
+            raise ValueError(
+                f"S={S} streams not divisible by the {len(devs)}-device mesh; pad "
+                f"the batch (driver: pad_streams) or drop sharding")
+        key = tuple(devs)
+        if key not in self._replicas:
+            self._replicas[key] = replicated(self.model, devs)
+        models = self._replicas[key]
+        grays = shard_batch(clip_gray, devs)
+        colors = shard_batch(clip_color, devs)
+        valids = (np.split(np.asarray(valid, bool), len(devs)) if valid is not None
+                  else [None] * len(devs))
+        out_hw = self.out_hw or tuple(clip_color.shape[2:4])
+        scans = [_scan_steps(m, init_state(g[:, 0], self.cfg), g[:, 1:], c[:, 1:],
+                             self.cfg, self.refine, out_hw, v)
+                 for m, g, c, v in zip(models, grays, colors, valids)]
+        warped = [[] for _ in devs]
+        states = [None] * len(devs)
+        for _ in range(clip_gray.shape[1] - 1):
+            for i, scan in enumerate(scans):
+                w, states[i] = next(scan)
+                warped[i].append(w)
+        home = devs[0]
+        state = StreamState(*(torch.cat([getattr(st, f).to(home) for st in states])
+                              for f in ("frames", "masks")),
+                            states[0].ptr,
+                            torch.cat([st.all_black.to(home) for st in states]))
+        return torch.cat([torch.stack(w, dim=1).to(home) for w in warped]), state
 
 
 def crop_rectangle(all_black: np.ndarray) -> Tuple[int, int, int, int]:

@@ -3,8 +3,10 @@
 Reference: train_bundle_nobm.py:199-357 — per-100-iteration loss display
 with the data-read vs. train-time split, per-500-iteration held-out eval
 over 10 batches, per-5000-iteration checkpoints; the JAX package's
-stabnet_tpu/train/loop.py.  Data parallelism and the debug mosaics come
-with later slices of the port.
+stabnet_tpu/train/loop.py.  In a process group (data parallelism,
+parallel/multihost.py) every rank steps, and rank 0 alone logs, writes the
+metrics and saves checkpoints while the others wait at a barrier.  The
+debug mosaics come with a later slice of the port.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 
 from stabnet_tpu_torch.config import StabNetConfig
+from stabnet_tpu_torch.parallel.multihost import barrier, process_index_count
 from stabnet_tpu_torch.train import checkpoint as ckpt
 from stabnet_tpu_torch.train.state import create_train_state
 from stabnet_tpu_torch.train.train import eval_step, train_step
@@ -86,7 +89,8 @@ def train(cfg: StabNetConfig, train_batches: Iterator,
             state.model.state_dict(), convert_imagenet_checkpoint(imagenet_ckpt)))
         logger.info("transferred ImageNet trunk from %s (conv1 + head kept "
                     "random)", imagenet_ckpt)
-    metrics = MetricsWriter(cfg.log_dir, tensorboard=tensorboard)
+    main = process_index_count()[0] == 0
+    metrics = MetricsWriter(cfg.log_dir, tensorboard=tensorboard) if main else None
     timers = StageTimer()
     total = num_steps if num_steps is not None else cfg.training_iter
     aux = None
@@ -98,28 +102,33 @@ def train(cfg: StabNetConfig, train_batches: Iterator,
                 state, aux = train_step(state, batch, cfg)
 
             if i % cfg.disp_freq == 0 or i == total - 1:
-                vals = {k: float(v) for k, v in aux.items()}
-                s = timers.summary()
-                data_ms, step_ms = s["data"]["mean_ms"], s["step"]["mean_ms"]
-                logger.info(
-                    "iter %d total=%.5f img=%.5f temp=%.5f (data %.1fms step %.1fms)",
-                    i, vals["total"], vals["img1"], vals["temp"], data_ms, step_ms)
-                metrics.write(i, "train", {**vals, "data_ms": data_ms,
-                                           "step_ms": step_ms})
+                if main:
+                    vals = {k: float(v) for k, v in aux.items()}
+                    s = timers.summary()
+                    data_ms, step_ms = s["data"]["mean_ms"], s["step"]["mean_ms"]
+                    logger.info(
+                        "iter %d total=%.5f img=%.5f temp=%.5f (data %.1fms step %.1fms)",
+                        i, vals["total"], vals["img1"], vals["temp"], data_ms, step_ms)
+                    metrics.write(i, "train", {**vals, "data_ms": data_ms,
+                                               "step_ms": step_ms})
                 timers.reset()
 
             if test_batches is not None and (i % cfg.test_freq == 0 or i == total - 1):
                 test_loss = float(np.mean([
                     float(eval_step(state, next(test_batches), cfg)["total"])
                     for _ in range(cfg.test_batches)]))
-                logger.info("iter %d test_loss=%.5f", i, test_loss)
-                metrics.write(i, "test", {"total": test_loss})
+                if main:
+                    logger.info("iter %d test_loss=%.5f", i, test_loss)
+                    metrics.write(i, "test", {"total": test_loss})
 
             # Always save at the final step (even step 0 of a 1-step run:
             # save/restore chains rely on every segment ending checkpointed).
             if (i > 0 and i % cfg.save_freq == 0) or i == total - 1:
-                ckpt.save(cfg.model_dir, state)
+                if main:
+                    ckpt.save(cfg.model_dir, state)
+                barrier()
     finally:
         # Flush partial metrics even when a step raises.
-        metrics.close()
+        if metrics is not None:
+            metrics.close()
     return state, aux

@@ -1,7 +1,6 @@
 """Siamese training step and the loss-gate schedule.
 
-PyTorch port of stabnet_tpu/train/train.py (the data-parallel jit stays
-out until the parallel slice).  What it reproduces:
+PyTorch port of stabnet_tpu/train/train.py.  What it reproduces:
 
   * Siamese over two adjacent time steps with shared weights
     (train_bundle_nobm.py:107-108): ONE forward over the concatenated pair
@@ -14,6 +13,11 @@ out until the parallel slice).  What it reproduces:
     at every step.
   * Adam with the staircase decay (train_bundle_nobm.py:155-160), and the BN
     statistics updated by the step's one forward.
+  * Data parallelism (the JAX package's step over a mesh): in a process
+    group, BatchNorm takes the global batch's statistics, the gradients are
+    averaged over the ranks before Adam, and the loss terms returned are
+    the global batch's (parallel/multihost.py).  Without one, nothing of
+    that runs.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from stabnet_tpu_torch import losses
 from stabnet_tpu_torch.config import StabNetConfig
 from stabnet_tpu_torch.models.stabnet import StabNetOutput, forward_train
 from stabnet_tpu_torch.ops import cuda_warp
+from stabnet_tpu_torch.parallel.multihost import average_gradients, mean_over_ranks
 from stabnet_tpu_torch.train.state import TrainState, learning_rate
 
 Batch = Dict[str, torch.Tensor]
@@ -126,9 +131,10 @@ def train_step(state: TrainState, batch: Batch, cfg: StabNetConfig
         p.grad = None
     total, aux = compute_losses(model, batch, cfg, gates)
     total.backward()
+    average_gradients(state.opt.params)
     state.opt.step(learning_rate(state.step, cfg))
     state.step += 1
-    return state, {k: v.detach() for k, v in aux.items()}
+    return state, mean_over_ranks({k: v.detach() for k, v in aux.items()})
 
 
 @torch.no_grad()
@@ -142,4 +148,4 @@ def eval_step(state: TrainState, batch: Batch, cfg: StabNetConfig
         _, aux = compute_losses(model, batch, cfg, loss_gates(state.step, cfg))
     finally:
         model.train()
-    return aux
+    return mean_over_ranks(aux)

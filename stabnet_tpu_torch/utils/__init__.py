@@ -4,6 +4,7 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 
@@ -16,3 +17,11 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "CUDA is not available; pass device='cpu' to run the plain "
             "PyTorch versions on the CPU")
     return dev
+
+
+def device_constant(a: np.ndarray, device: Union[str, torch.device]) -> torch.Tensor:
+    """`a` as a tensor on `device`, for the shape-keyed caches of constants
+    the steps read every call: made outside inference mode, so a program
+    traced later (`torch.export`) can take it as a constant."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(np.asarray(a)).to(device)

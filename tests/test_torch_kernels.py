@@ -467,3 +467,72 @@ def test_kernels_match_plain_on_the_card():
     got = cuda_warp.sample_map_grad(im, x, y, g[..., :1].contiguous())
     want = cuda_warp.sample_map_grad_plain(im, x, y, g[..., :1].contiguous())
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _op_args(device="cpu"):
+    """Arguments of each `torch.ops.stabnet` op at a small ragged size,
+    seeded with numpy; the mesh op reads its frame in place from a stack."""
+    rng = np.random.RandomState(7)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    im = t(rng.rand(2, 9, 14, 2).astype(np.float32))
+    x = t(rng.uniform(-1.2, 1.2, (2, 7, 11)).astype(np.float32))
+    y = t(rng.uniform(-1.2, 1.2, (2, 7, 11)).astype(np.float32))
+    imc = t(rng.randint(0, 256, (2, 3, 9, 14), dtype=np.uint8))
+    g = t(rng.rand(2, 7, 11, 2).astype(np.float32))
+    stack = t(rng.rand(2, 13, 9, 14).astype(np.float32)).permute(0, 2, 3, 1)
+    Hs = (torch.eye(3).expand(2, 2, 2, 3, 3)
+          + torch.from_numpy(rng.uniform(-0.05, 0.05, (2, 2, 2, 3, 3)).astype(np.float32)))
+    tables = tuple(mesh_tables(9, 14, 2, 2, torch.device(device)))
+    return {
+        "bilinear_sample": (im, x, y, True),
+        "warp_mesh": (stack[..., 12:13], Hs.contiguous().to(device), *tables),
+        "warp_uint8_cf_lowres": (imc, x[:, :3, :4].contiguous(), y[:, :3, :4].contiguous(),
+                                 [9, 14]),
+        "warp_uint8_cf": (imc, x, y),
+        "bilinear_splat": (g, x, y, [9, 14]),
+        "sample_map_grad": (im, x, y, g),
+    }
+
+
+PLAIN = {
+    "bilinear_sample": cuda_warp.bilinear_sample_plain,
+    "warp_mesh": lambda im, Hs, *tables: cuda_warp.warp_mesh_plain(im, Hs, tables),
+    "warp_uint8_cf_lowres": cuda_warp.warp_uint8_cf_lowres_plain,
+    "warp_uint8_cf": cuda_warp.warp_uint8_cf_plain,
+    "bilinear_splat": cuda_warp.bilinear_splat_plain,
+    "sample_map_grad": cuda_warp.sample_map_grad_plain,
+}
+
+
+def _equal(got, want) -> bool:
+    got, want = ((got,), (want,)) if isinstance(got, torch.Tensor) else (got, want)
+    return len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("name", sorted(PLAIN))
+def test_custom_op_opcheck(name):
+    """Every kernel entry point is a `torch.ops.stabnet` custom op whose
+    schema, fake implementation and dispatch `torch.library.opcheck`
+    accepts on CPU tensors, and whose result is its plain version's."""
+    args = _op_args()[name]
+    op = getattr(torch.ops.stabnet, name)
+    torch.library.opcheck(op.default, args)
+    assert _equal(op(*args), PLAIN[name](*args))
+
+
+@pytest.mark.cuda
+def test_custom_ops_match_plain_on_the_card():
+    """Each op through `torch.ops.stabnet` on CUDA tensors launches its
+    kernel once and equals its plain version on the same tensors bit for
+    bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for name, args in _op_args("cuda").items():
+        kernel = getattr(cuda_warp, name)
+        before = kernel.launches
+        got = getattr(torch.ops.stabnet, name)(*args)
+        assert kernel.launches == before + 1, name
+        assert _equal(got, PLAIN[name](*args)), name

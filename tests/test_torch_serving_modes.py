@@ -231,11 +231,11 @@ def test_rejections_match_jax(tmp_path):
         (dict(collect_input_gray=True),
          lambda d: d.stabilize_file("missing.avi", str(tmp_path), stream_chunk=4)),
         ({}, lambda d: d.stabilize_file("missing.avi", str(tmp_path), stream_chunk=0)),
+        ({}, lambda d: d.stabilize_batch([clip], sharded=True, chunk=4)),
     ]
     for opts, call in cases:
         assert _error(lambda: call(_driver(**opts))) == \
             _error(lambda: call(_jax_driver(**opts))), opts
-    assert "Parallel" in _error(lambda: _driver().stabilize_batch([clip], sharded=True))
     assert not os.listdir(tmp_path)   # refused before any output file
 
 
