@@ -16,7 +16,7 @@ nonzero exit):
      K2m (the serving warp: dense maps, black mask and sampler in one
      launch) against its plain version, bit for bit, at S=1 and S=4 with
      the frame read in place from the 13-channel stack, in the stack layout
-     of a refine pass, at 289x515, on a zoomed-out mesh with black borders
+     of a refine pass (also at S=10, the debug forward's batch), at 289x515, on a zoomed-out mesh with black borders
      and on a mesh with Z < 0 in some cells;
   3. K1 (uint8 color warp, fused map up-sample) and K3 (the same warp at
      full-resolution maps) against their plain versions, bit for bit, at
@@ -94,6 +94,20 @@ nonzero exit):
      at S=4 against each shard's own run at S=2, and the driver's sharded
      batch over the card's one replica against the unsharded batch, bit for
      bit;
+ 19. doctor: `python -m stabnet_tpu_torch.cli.main doctor --compact` in a
+     process of its own: every check passes, the backend is this card at
+     compute capability 9.0, each kernel (K1, K2 in both edge modes, K2m,
+     K3, K4, K6b) launched once per call and bit for bit its plain version;
+     then `doctor --only backend --timeout 5` with the backend faked as
+     wedged returns within 15 s with exit 1 and "did not respond";
+ 20. debug-vis: `train --debug-vis --set test_freq=2` through the CLI on
+     phase 8's shards, v2_93 bf16 batch 10, 4 steps, against the run
+     without it (cuDNN deterministic in both): K2m once per dump (steps 0,
+     2 and 3), K2 2, K4 1 and K6b 1 per step, losses and the step-4
+     checkpoint bit for bit; without OpenCV the dump warns and writes
+     nothing; then the debug forward once more in this process on a
+     training batch with the step-4 weights: one K2m launch, bit for bit
+     its plain version on the output, mask and maps;
 and in phase 12 the card-against-CPU gap of fit_homographies split by
 cause (its normal equations summed in float64 on both devices).
 `python3 chip_smoke.py _dp_rank MODE ARGS...` is phase 17's rank process.
@@ -409,7 +423,8 @@ def phase_k2(gen: torch.Generator, dev):
 
     # K2m: (S, frame size, mesh zoom, stack channels last, cells negated).
     cases = [(1, (H, W), 1.0, False, False), (4, (H, W), 1.0, False, False),
-             (2, (H, W), 1.0, True, False), (1, (289, 515), 1.0, False, False),
+             (2, (H, W), 1.0, True, False), (10, (H, W), 1.0, True, False),
+             (10, (H, W), 1.2, True, False), (1, (289, 515), 1.0, False, False),
              (2, (H, W), 1.2, False, False), (2, (H, W), 1.0, False, True)]
     shares = []
     for S, (h, w), zoom, channels_last, negate in cases:
@@ -440,7 +455,8 @@ def phase_k2(gen: torch.Generator, dev):
           f"(10, {H}, {W}, 2), (20, {H}, {W}, 1) and (2, 72, 136, 5), realistic + "
           f"adversarial maps, strict_edge True/False; warp_mesh vs plain: max abs "
           f"{worst['warp_mesh']:.3g} (tolerance 0) on the output, mask and maps at "
-          f"S=1/4 (frame read in place from the stack), S=2 channels-last stack, "
+          f"S=1/4 (frame read in place from the stack), S=2 and 10 (the debug forward's "
+          f"batch, also zoomed out) channels-last stack, "
           f"289x515, zoomed out and with negated cells (black shares {shares})")
     return worst
 
@@ -1856,7 +1872,7 @@ def dp_rank(mode: str, argv) -> int:
 def run_ranks(nproc, mode: str, argv, timeout: int = 300):
     """`argv` through the CLI in `nproc` ranks under torch.distributed.run
     (nproc None: one process without a launcher); returns each rank's
-    launches and the wall seconds."""
+    launches, the wall seconds and the processes' standard error."""
     here = os.path.abspath(__file__)
     cmd = [sys.executable, here, DP_RANK, mode, *argv]
     if nproc is not None:
@@ -1874,7 +1890,7 @@ def run_ranks(nproc, mode: str, argv, timeout: int = 300):
           f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
     ranks = [json.loads(ln[len("LAUNCHES "):]) for ln in proc.stdout.splitlines()
              if ln.startswith("LAUNCHES ")]
-    return sorted(ranks, key=lambda r: r.pop("rank")), wall
+    return sorted(ranks, key=lambda r: r.pop("rank")), wall, proc.stderr
 
 
 def logged(log_dir: str):
@@ -1910,7 +1926,7 @@ def phase_data_parallel(card: str, dev, tmp: str, data: str):
             ("nccl1", 1, "det", ("--data-parallel",)),
             ("gloo2", 2, "f32", ("--data-parallel", "--set",
                                  "compute_dtype=float32"))):
-        ranks, wall = run_ranks(nproc, mode, args(name, *extra))
+        ranks, wall, _ = run_ranks(nproc, mode, args(name, *extra))
         check(ranks == [per_rank] * (nproc or 1),
               f"{name}: launches per rank {ranks}, expected {per_rank}")
         out[name] = (logged(os.path.join(tmp, name, "log")), wall)
@@ -1998,6 +2014,165 @@ def phase_sharded(card: str, dev, engine, clips: np.ndarray):
     return launches
 
 
+# The doctor's names of the kernels, by their wrappers' names.
+DOCTOR_NAMES = {"warp_uint8_cf_lowres": "K1", "bilinear_sample": "K2", "warp_mesh": "K2m",
+                "warp_uint8_cf": "K3", "bilinear_splat": "K4", "sample_map_grad": "K6b"}
+
+
+def run_doctor_cli(*argv, env=None, timeout: float = 300):
+    """`doctor` through the port's CLI in a process of its own: (exit code,
+    report, wall seconds)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "stabnet_tpu_torch.cli.main", "doctor",
+                           "--compact", *argv], capture_output=True, text=True, cwd=here,
+                          timeout=timeout, env=dict(os.environ, **(env or {})))
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    check(bool(lines), f"doctor {argv}: no report (exit {proc.returncode})\n{proc.stderr[-3000:]}")
+    return proc.returncode, json.loads(lines[-1]), wall
+
+
+def phase_doctor(card: str):
+    """`doctor` on the card: every check passes, the backend is this card at
+    compute capability 9.0, every kernel launched once per call and equal to
+    its plain version; then a wedged backend (the test hook) reported within
+    15 s with exit 1.  Returns each kernel's launches in the doctor's probe."""
+    rc, report, wall = run_doctor_cli()
+    checks = report["checks"]
+    check(rc == 0 and report["ok"], f"doctor failed (exit {rc}): {json.dumps(report)}")
+    backend, kernels = checks["backend"], checks["kernels"]
+    check(backend["name"] == torch.cuda.get_device_name(0) and backend["capability"] == [9, 0],
+          f"doctor's backend {backend}")
+    check(checks["host"]["ok"] and checks["mesh"]["ok"]
+          and checks["mesh"]["all_reduce_sum"] == 496.0, f"doctor's host and mesh {checks}")
+    check(kernels["device"] == "cuda" and set(kernels["kernels"]) == set(DOCTOR_NAMES.values()),
+          f"doctor's kernels {kernels}")
+    for name, k in kernels["kernels"].items():
+        check(k["ok"] and k["launches"] == k["calls"] and k["max_abs_err"] == 0.0,
+              f"doctor's kernel {name}: {k}")
+    rc_hang, hung, hang_wall = run_doctor_cli(
+        "--only", "backend", "--timeout", "5", env={"STABNET_DOCTOR_FAKE_HANG": "backend"},
+        timeout=60)
+    check(rc_hang == 1 and hang_wall < 15.0 and not hung["ok"]
+          and "did not respond" in hung["checks"]["backend"]["error"],
+          f"the wedged backend: exit {rc_hang} after {hang_wall:.1f} s, {json.dumps(hung)}")
+    print(f"[19 doctor] {card} | doctor through the CLI in {wall:.1f} s, all checks ok: "
+          f"backend {backend['name']} capability {backend['capability']}, "
+          f"{backend['memory_gb']} GB ({backend['memory_in_use_gb']} in use), first "
+          f"computation read back {backend['first_compute_seconds']} s after the probe's "
+          f"start, probe {backend['seconds']} s; kernels built in {kernels['build_seconds']} s "
+          f"(cached by phase 1), probe {kernels['seconds']} s, each bit for bit its plain "
+          f"version: " + ", ".join(f"{n} {k['launches']} launches ({k['calls']} calls)"
+                                   for n, k in kernels["kernels"].items())
+          + f"; host {checks['host']['cpus']} CPUs, mesh probe {checks['mesh']['seconds']} s;"
+          f" a wedged backend reported in {hang_wall:.1f} s (deadline 5 s) with exit 1")
+    return {fn: kernels["kernels"][k]["launches"] for fn, k in DOCTOR_NAMES.items()}
+
+
+def debug_forward_k2m(data: str, ckpt_dir: str) -> float:
+    """The debug dump's forward as `train --debug-vis` runs it (the model
+    in eval mode on an augmented v2_93 training batch of 10, the current
+    frame read in place from the channels-last 13-channel x1 stack), with
+    the weights of `ckpt_dir`: one K2m launch, its output, mask and maps
+    bit for bit `warp_mesh_plain` on the same frame and homographies.
+    Returns the max abs error."""
+    from stabnet_tpu_torch.data.pipeline import InputPipeline
+    from stabnet_tpu_torch.models.stabnet import current_frame, forward
+    from stabnet_tpu_torch.ops import cuda_warp, mesh_tables
+    from stabnet_tpu_torch.train.state import create_train_state
+
+    cfg = live_config()
+    dev = torch.device("cuda")
+    pipe = InputPipeline(os.path.join(data, "train"), cfg, seed=0, device=dev)
+    try:
+        x1 = next(pipe)["x1"]
+    finally:
+        pipe.close()
+    check(tuple(x1.shape) == (10, cfg.height, cfg.width, 13) and x1.stride(2) == 13,
+          f"debug forward: x1 {tuple(x1.shape)} at strides {x1.stride()}")
+    model = create_train_state(cfg, device=dev, seed=0).model
+    model.load_state_dict(torch.load(os.path.join(ckpt_dir, "state.pt"), map_location=dev,
+                                     weights_only=True)["model"])
+    model.eval()
+    before = cuda_warp.warp_mesh.launches
+    out = forward(model, x1, cfg).warp
+    check(cuda_warp.warp_mesh.launches - before == 1,
+          f"debug forward: {cuda_warp.warp_mesh.launches - before} K2m launches")
+    got = (out.output, out.black_pix, out.x_map, out.y_map)
+    want = cuda_warp.warp_mesh_plain(current_frame(x1, cfg), out.Hs,
+                                     mesh_tables(cfg.height, cfg.width, cfg.grid_h,
+                                                 cfg.grid_w, dev))
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          f"debug forward at (10, {cfg.height}, {cfg.width}): K2m max abs {err} to its "
+          f"plain version")
+    return err
+
+
+def phase_debug_vis(card: str, tmp: str, data: str):
+    """`train --debug-vis --set test_freq=2` through the CLI on phase 8's
+    shards, v2_93 bf16 batch 10, 4 steps, against the same run without it,
+    both with cuDNN's deterministic algorithms: K2m once per dump (steps 0,
+    2 and 3) and the training kernels' per-step launches; the losses and
+    the step-4 checkpoint bit for bit.  Returns the debug run's launches."""
+    steps, dumps = 4, 3
+    base = ["train", "--config", "v2_93", "--data", data, "--seed", "0", "--steps",
+            str(steps), "--set", "disp_freq=1", "--set", "test_freq=2", *TRAIN_LIVE]
+    runs = {}
+    for name, extra in (("vis", ["--debug-vis"]), ("plain", [])):
+        out = os.path.join(tmp, f"debug_{name}")
+        (launches,), wall, err = run_ranks(None, "det", base + [
+            "--model-dir", os.path.join(out, "models"), "--log-dir", os.path.join(out, "log"),
+            *extra])
+        runs[name] = (launches, wall, err, out)
+    per_step = {k: 0 for k in DOCTOR_NAMES} | {
+        "bilinear_sample": 2 * steps, "bilinear_splat": steps, "sample_map_grad": steps}
+    check(runs["plain"][0] == per_step, f"train without --debug-vis: {runs['plain'][0]}")
+    want = per_step | {"warp_mesh": dumps}
+    check(runs["vis"][0] == want, f"train --debug-vis: launches {runs['vis'][0]}, "
+          f"expected {want}")
+    rows = {n: logged(os.path.join(r[3], "log")) for n, r in runs.items()}
+    keys = [k for k in rows["plain"][0] if not k.endswith("_ms")]
+    check([[r[k] for k in keys] for r in rows["vis"]]
+          == [[r[k] for k in keys] for r in rows["plain"]],
+          "the losses with --debug-vis differ from the run without it")
+    a, b = (torch.load(os.path.join(r[3], "models", str(steps), "state.pt"),
+                       map_location="cpu", weights_only=True)["model"] for r in runs.values())
+    check(a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a),
+          "the step-4 checkpoint with --debug-vis differs from the run without it")
+    k2m_err = debug_forward_k2m(data, os.path.join(runs["vis"][3], "models", str(steps)))
+    debug_dir = os.path.join(runs["vis"][3], "log", "debug")
+    try:
+        import cv2
+        dumped = sorted({n[:10] for n in os.listdir(debug_dir)})
+        check(dumped == ["step000000", "step000002", "step000003"], f"dumps {dumped}")
+        written = f"OpenCV {cv2.__version__} here: mosaics written for steps {dumped}"
+    except ImportError:
+        # No OpenCV on this machine: save_debug_batch warns and returns [].
+        warned = runs["vis"][2].count("cv2 unavailable; skipping debug dump")
+        check(warned == dumps and not os.path.exists(debug_dir),
+              f"{warned} warnings of the missing OpenCV, debug dir {os.path.exists(debug_dir)}")
+        written = f"no OpenCV here: {warned} warnings logged, nothing written"
+    ms = {n: [round(r["step_ms"], 3) for r in rr] for n, rr in rows.items()}
+    import importlib.util
+
+    written += ("; TensorFlow installed" if importlib.util.find_spec("tensorflow")
+                else "; no TensorFlow here")
+    print(f"[20 debug-vis] {card} | train --debug-vis --set test_freq=2 through the CLI on "
+          f"phase 8's shards, v2_93 bf16 batch 10, {steps} steps, cuDNN deterministic: "
+          f"launches {runs['vis'][0]} (K2m once per dump, at steps 0, 2 and 3); the debug "
+          f"forward rerun here on a (10, 288, 512, 13) training batch with the step-{steps} "
+          f"weights: K2m once, max abs {k2m_err:.3g} to its plain version (tolerance 0) on the "
+          f"output, mask and maps; losses and the "
+          f"step-{steps} checkpoint (weights and BN running statistics) bit for bit the run "
+          f"without it (launches {runs['plain'][0]}); {written}; step ms with "
+          f"{ms['vis']}, without {ms['plain']}; command wall {runs['vis'][1]:.1f} and "
+          f"{runs['plain'][1]:.1f} s")
+    return runs["vis"][0]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2030,6 +2205,8 @@ def main() -> int:
         phase_flow_train(card, tmp, data, flowless_iter_ms)
         phase_weights_in(card, dev, clips, tmp, data)
         dp_launches = phase_data_parallel(card, dev, tmp, data)
+        doctor_launches = phase_doctor(card)
+        vis_launches = phase_debug_vis(card, tmp, data)
     # K2, K4 and K6b run on the training path: their launches are a
     # segment's, at the shapes of the K6 forward and of the backwards.
     kernels.insert(0, kernel_row("bilinear_sample", "stabnet_tpu/ops/pallas_warp.py:469",
@@ -2049,6 +2226,8 @@ def main() -> int:
         row["launches_export_batch"] = export_batch_launches[row["name"]]
         row["launches_sharded"] = sharded_launches[row["name"]]
         row["launches_data_parallel_rank"] = dp_launches[row["name"]]
+        row["launches_doctor"] = doctor_launches[row["name"]]
+        row["launches_debug_vis"] = vis_launches[row["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

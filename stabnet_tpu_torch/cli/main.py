@@ -18,7 +18,7 @@ Usage:
   python -m stabnet_tpu_torch.cli.main train --config v2_93 --data data/ \
       [--model-dir DIR] [--log-dir DIR] [--restore] [--imagenet-ckpt CKPT] \
       [--steps N] [--set key=value ...] [--seed 0] [--tensorboard] \
-      [--compute-flow] [--data-parallel] \
+      [--compute-flow] [--data-parallel] [--debug-vis] \
       [--device cuda|cpu]
   python -m torch.distributed.run --nproc-per-node N \
       -m stabnet_tpu_torch.cli.main train --data-parallel ...
@@ -26,6 +26,14 @@ Usage:
       [--input in.avi] [--config v2_93] [--max-frames 120] [--device cuda|cpu]
   python -m stabnet_tpu_torch.cli.main convert-ckpt --tf-checkpoint model-80000 \
       --out DIR [--config v2_93]
+  python -m stabnet_tpu_torch.cli.main make-dataset --prefix data_video \
+      --list LIST|NAME ... --out data/train [--stride 4] [--max-per-video N]
+  python -m stabnet_tpu_torch.cli.main convert-data --records data/train \
+      --out shards/train [--limit N]
+  python -m stabnet_tpu_torch.cli.main inspect-data --records shards/train \
+      --out dumps/ [--num 2] [--device cuda|cpu]
+  python -m stabnet_tpu_torch.cli.main doctor [--timeout 120] \
+      [--only host backend kernels mesh] [--compact] [--device cuda|cpu]
 
 `train` reads record shards from `<data>/train` and, if it exists,
 `<data>/test` (reference: train_bundle_nobm.py:34-37); `--compute-flow`
@@ -58,6 +66,14 @@ local card, one model replica each.  `export` writes the serving step, its
 weights baked in, as a `torch.export` artifact for the device it was traced
 on (with `--segment K` also K steps unrolled); `stabilize --from-export`
 serves from it.
+
+`make-dataset` builds shards from stable/unstable video pairs (ORB matches
+through OpenCV; no flow, so train them with `--compute-flow`),
+`convert-data` from the reference's TFRecords (needs TensorFlow), and
+`inspect-data` dumps examples as images; `train --debug-vis` writes the
+reference's debug mosaics.  `doctor` probes the card in bounded
+subprocesses: liveness, every kernel against its plain version, and the
+host side of data parallelism; it exits 1 when a check fails.
 """
 
 from __future__ import annotations
@@ -71,14 +87,17 @@ DEVICE_HELP = ("torch device (default cuda; cpu runs the plain PyTorch "
                "versions of the kernels)")
 
 
-def _read_video_lists(paths):
+def _read_video_lists(paths, allow_names=False):
     """Video names from the list files that exist (reference --test-list
-    semantics: the default names two lists, either may be absent)."""
+    semantics: the default names two lists, either may be absent); with
+    `allow_names`, a path that is not a file passes through as a name."""
     names = []
     for list_path in paths:
         if os.path.isfile(list_path):
             with open(list_path) as f:
                 names.extend(v.strip() for v in f.read().split("\n") if v.strip())
+        elif allow_names:
+            names.append(list_path)
     return names
 
 
@@ -315,15 +334,16 @@ def cmd_train(args):
                                             process_index_count)
     from stabnet_tpu_torch.train.checkpoint import latest_step
     from stabnet_tpu_torch.train.loop import train
+    from stabnet_tpu_torch.utils import get_logger
 
     device = args.device
     if args.data_parallel:
         # Under torch.distributed.run; a world of one without a launcher.
         device, backend = _rank_device(args.device)
         initialize_distributed(backend=backend)
+    # Rank 0 alone logs the loop's INFO lines; the others keep warnings.
     main_rank = process_index_count()[0] == 0
-    logging.basicConfig(level=logging.INFO if main_rank else logging.WARNING,
-                        format="%(message)s")
+    get_logger().setLevel(logging.INFO if main_rank else logging.WARNING)
     cfg = apply_overrides(get_config(args.config), args.set)
     if args.model_dir:
         cfg = cfg.replace(model_dir=args.model_dir)
@@ -347,7 +367,7 @@ def cmd_train(args):
     try:
         train(cfg, train_it, test_it, restore=args.restore, num_steps=args.steps,
               seed=args.seed, tensorboard=args.tensorboard, device=device,
-              imagenet_ckpt=args.imagenet_ckpt)
+              imagenet_ckpt=args.imagenet_ckpt, debug_vis=args.debug_vis)
     finally:
         for it in (train_it, test_it):
             if it is not None:
@@ -445,6 +465,37 @@ def cmd_export(args):
         print("selftest: the loaded artifact ran one step")
 
 
+def cmd_make_dataset(args):
+    """Raw stable/unstable video pairs -> training shards: ORB matches on
+    the host (data/ingest.py); the flow is estimated at training time
+    (`train --compute-flow`)."""
+    from stabnet_tpu_torch.config import get_config
+    from stabnet_tpu_torch.data.ingest import build_dataset
+
+    names = _read_video_lists(args.list, allow_names=True)
+    n = build_dataset(args.prefix, names, args.out, get_config(args.config),
+                      stride=args.stride, max_per_video=args.max_per_video)
+    print(f"wrote {n} examples -> {args.out}")
+    print("note: shards carry no flow field; train with --compute-flow")
+
+
+def cmd_convert_data(args):
+    from stabnet_tpu_torch.compat.tfrecord import convert_dataset
+    from stabnet_tpu_torch.config import get_config
+
+    n = convert_dataset(args.records, args.out, get_config(args.config), limit=args.limit)
+    print(f"converted {n} examples -> {args.out}")
+
+
+def cmd_inspect_data(args):
+    from stabnet_tpu_torch.config import get_config
+    from stabnet_tpu_torch.data.visualize import inspect_dataset
+
+    inspect_dataset(args.records, args.out, get_config(args.config), num=args.num,
+                    device=args.device)
+    print(f"wrote inspection dumps -> {args.out}")
+
+
 def cmd_make_synthetic(args):
     from stabnet_tpu_torch.config import get_config
     from stabnet_tpu_torch.data.records import write_synthetic_dataset
@@ -474,8 +525,12 @@ def main(argv=None):
                         "--set step_size=4000")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--tensorboard", action="store_true",
-                   help="mirror the metrics to TensorBoard event files under "
-                        "<log-dir>/tb")
+                   help="mirror the metrics (and --debug-vis mosaics) to "
+                        "TensorBoard event files under <log-dir>/tb")
+    p.add_argument("--debug-vis", action="store_true",
+                   help="every test_freq steps and at the last, write debug "
+                        "mosaics of the batch under <log-dir>/debug "
+                        "(save_warpped_features equivalent; needs OpenCV)")
     p.add_argument("--compute-flow", action="store_true",
                    help="estimate the temporal-loss flow on the device "
                         "(TV-L1, stabnet_tpu_torch.ops.flow) instead of reading "
@@ -588,6 +643,43 @@ def main(argv=None):
     p.add_argument("--out", required=True)
     p.add_argument("--config", default="v2_93")
     p.set_defaults(fn=cmd_convert_ckpt)
+
+    p = sub.add_parser("make-dataset",
+                       help="raw stable/unstable video pairs -> training shards "
+                            "(ORB matches; the flow at training time)")
+    p.add_argument("--prefix", default="data_video",
+                   help="directory with stable/ and unstable/ subdirectories")
+    p.add_argument("--list", nargs="+", required=True,
+                   help="video list file(s), or video names directly")
+    p.add_argument("--out", required=True)
+    p.add_argument("--stride", type=int, default=4,
+                   help="frames between consecutive example positions")
+    p.add_argument("--max-per-video", type=int, default=None)
+    p.add_argument("--config", default="v2_93")
+    p.set_defaults(fn=cmd_make_dataset)
+
+    p = sub.add_parser("convert-data",
+                       help="reference TFRecords -> record shards (needs TensorFlow)")
+    p.add_argument("--records", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--limit", type=int, default=None)
+    p.add_argument("--config", default="v2_93")
+    p.set_defaults(fn=cmd_convert_data)
+
+    p = sub.add_parser("inspect-data",
+                       help="dump raw and augmented examples as images "
+                            "(get_data_mini_after run()/test() equivalent)")
+    p.add_argument("--records", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--num", type=int, default=2)
+    p.add_argument("--config", default="v2_93")
+    p.add_argument("--device", default="cuda",
+                   help="the device that augments (default cuda)")
+    p.set_defaults(fn=cmd_inspect_data)
+
+    from stabnet_tpu_torch.cli import doctor
+
+    doctor.add_parser(sub)
     args = parser.parse_args(argv)
     args.fn(args)
 

@@ -14,10 +14,10 @@ K3  `warp_uint8_cf`        replaces pallas_warp.py:524 `warp_uint8_cf` (the
                            kernel body, on no path, as in the JAX package).
 K4  `bilinear_splat`       replaces pallas_warp.py:738 `bilinear_splat_pallas`
                            (the strict sampler's adjoint in the image).
-K6b `sample_map_grad`      replaces the backward of pallas_warp.py:916
+K6b `sample_map_grad`      replaces the backward of pallas_warp.py:917
                            (the strict sampler's derivative in the maps).
 K5  `bilinear_sample_const_maps` and K6 `bilinear_sample_const_image`
-    replace the custom VJPs of pallas_warp.py:878 and :916: autograd
+    replace the custom VJPs of pallas_warp.py:879 and :917: autograd
     Functions with K2 forward and K4 or K6b backward.
 
 Each entry point is a `torch.library` custom op, `torch.ops.stabnet.<name>`,

@@ -17,7 +17,6 @@ mosaics, --start-with-stable, and the final accumulated-black maximal crop
 from __future__ import annotations
 
 import dataclasses
-import logging
 import os
 import time
 from typing import List, Optional, Tuple
@@ -28,9 +27,10 @@ import torch
 from stabnet_tpu_torch.ops.crop import max_clear_rect
 from stabnet_tpu_torch.stream import video_io
 from stabnet_tpu_torch.stream.engine import StreamEngine, gray_from_color
+from stabnet_tpu_torch.utils import get_logger
 from stabnet_tpu_torch.utils.profiling import StageTimer
 
-logger = logging.getLogger("stabnet_tpu_torch")
+logger = get_logger()
 
 
 @dataclasses.dataclass

@@ -23,10 +23,10 @@ def optional_cv2():
     return cv2
 
 
-def _require_cv2():
+def _require_cv2(hint: str = "use ArrayVideoReader/Writer"):
     cv2 = optional_cv2()
     if cv2 is None:
-        raise RuntimeError("OpenCV not available; use ArrayVideoReader/Writer")
+        raise RuntimeError(f"OpenCV not available; {hint}")
     return cv2
 
 

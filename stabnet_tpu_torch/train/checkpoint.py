@@ -12,7 +12,6 @@ ResNet-v2-50 that keeps the 13-channel conv1 and the head
 
 from __future__ import annotations
 
-import logging
 import os
 import shutil
 from typing import Dict, List, Optional
@@ -20,8 +19,9 @@ from typing import Dict, List, Optional
 import torch
 
 from stabnet_tpu_torch.train.state import TrainState
+from stabnet_tpu_torch.utils import get_logger
 
-logger = logging.getLogger("stabnet_tpu_torch")
+logger = get_logger()
 
 MAX_TO_KEEP = 5
 _FILE = "state.pt"

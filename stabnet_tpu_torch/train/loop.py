@@ -5,14 +5,14 @@ with the data-read vs. train-time split, per-500-iteration held-out eval
 over 10 batches, per-5000-iteration checkpoints; the JAX package's
 stabnet_tpu/train/loop.py.  In a process group (data parallelism,
 parallel/multihost.py) every rank steps, and rank 0 alone logs, writes the
-metrics and saves checkpoints while the others wait at a barrier.  The
-debug mosaics come with a later slice of the port.
+metrics and saves checkpoints while the others wait at a barrier.  With
+`debug_vis`, rank 0 also dumps the reference's debug mosaics
+(train_bundle_nobm.py:41-94) from a forward in eval mode.
 """
 
 from __future__ import annotations
 
 import json
-import logging
 import os
 from typing import Dict, Iterator, Optional
 
@@ -23,9 +23,10 @@ from stabnet_tpu_torch.parallel.multihost import barrier, process_index_count
 from stabnet_tpu_torch.train import checkpoint as ckpt
 from stabnet_tpu_torch.train.state import create_train_state
 from stabnet_tpu_torch.train.train import eval_step, train_step
+from stabnet_tpu_torch.utils import get_logger
 from stabnet_tpu_torch.utils.profiling import StageTimer
 
-logger = logging.getLogger("stabnet_tpu_torch")
+logger = get_logger()
 
 
 class MetricsWriter:
@@ -55,17 +56,47 @@ class MetricsWriter:
                 self._tb.add_scalar(f"{tag}/{k}", v, step)
             self._tb.flush()   # disp_freq-paced: keep the tail of a crashed run
 
+    def add_image(self, step: int, tag: str, image_bgr: np.ndarray) -> None:
+        """Log an (H, W, 3) uint8 BGR image, as RGB (no-op without
+        TensorBoard)."""
+        if self._tb is not None:
+            self._tb.add_image(tag, image_bgr[..., ::-1], step, dataformats="HWC")
+
     def close(self) -> None:
         self._f.close()
         if self._tb is not None:
             self._tb.close()
 
 
+def _debug_dump(state, batch, cfg: StabNetConfig, step: int,
+                metrics: MetricsWriter) -> None:
+    """Branch 1's forward on `batch["x1"]` with the model in eval mode, its
+    mosaics under `<log_dir>/debug` and the first to TensorBoard (reference:
+    save_warpped_features, train_bundle_nobm.py:41-94,306,321).
+
+    Eval mode reads BatchNorm's running statistics and changes nothing: in
+    training mode the forward would update them, and in a process group
+    reduce them over the ranks, which this rank alone would wait for.  It
+    draws from no generator, so the training run is bit for bit the same
+    with and without the dump.  On CUDA the warp is one K2m launch."""
+    from stabnet_tpu_torch.models.stabnet import forward
+    from stabnet_tpu_torch.train.visualize import save_debug_batch
+
+    model = state.model.eval()
+    try:
+        out1 = forward(model, batch["x1"], cfg)
+    finally:
+        model.train()
+    mosaics = save_debug_batch(os.path.join(cfg.log_dir, "debug"), batch, out1, cfg, step)
+    if mosaics:
+        metrics.add_image(step, "debug/mosaic", mosaics[0])
+
+
 def train(cfg: StabNetConfig, train_batches: Iterator,
           test_batches: Optional[Iterator] = None, restore: bool = False,
           num_steps: Optional[int] = None, seed: int = 0,
           tensorboard: bool = False, device=None,
-          imagenet_ckpt: Optional[str] = None):
+          imagenet_ckpt: Optional[str] = None, debug_vis: bool = False):
     """Run training to step `num_steps` (default cfg.training_iter); returns
     (final TrainState, the last step's loss terms).
 
@@ -77,7 +108,9 @@ def train(cfg: StabNetConfig, train_batches: Iterator,
     (reference: --restore, train_bundle_nobm.py:36,204-206).  Without
     `restore`, `imagenet_ckpt` (slim's ImageNet resnet_v2_50 checkpoint)
     grafts its trunk onto the fresh model, conv1 and the head kept
-    (train_bundle_nobm.py:184-191,208).  `device` defaults to CUDA.
+    (train_bundle_nobm.py:184-191,208).  With `debug_vis`, rank 0 writes
+    debug mosaics every `test_freq` steps and at the last (`_debug_dump`).
+    `device` defaults to CUDA.
     """
     state = create_train_state(cfg, device=device, seed=seed)
     if restore:
@@ -112,6 +145,9 @@ def train(cfg: StabNetConfig, train_batches: Iterator,
                     metrics.write(i, "train", {**vals, "data_ms": data_ms,
                                                "step_ms": step_ms})
                 timers.reset()
+
+            if debug_vis and main and (i % cfg.test_freq == 0 or i == total - 1):
+                _debug_dump(state, batch, cfg, i, metrics)
 
             if test_batches is not None and (i % cfg.test_freq == 0 or i == total - 1):
                 test_loss = float(np.mean([

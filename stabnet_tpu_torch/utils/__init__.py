@@ -7,6 +7,8 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from stabnet_tpu_torch.utils.logging import get_logger
+
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller asks for the
@@ -17,6 +19,12 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "CUDA is not available; pass device='cpu' to run the plain "
             "PyTorch versions on the CPU")
     return dev
+
+
+def host_array(a) -> np.ndarray:
+    """`a` (a tensor on any device, or array-like) as a numpy array on the
+    host."""
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
 def device_constant(a: np.ndarray, device: Union[str, torch.device]) -> torch.Tensor:

@@ -251,16 +251,20 @@ def test_cli_train_imagenet_ckpt(tmp_path, caplog, checkpoint):
     """`train --imagenet-ckpt` grafts the trunk before the first step: after
     one Adam step (at most the learning rate per weight) the trunk's weights
     are the pretrained ones; conv1 keeps TINY's stem."""
-    import logging
-
     from stabnet_tpu_torch.cli.main import main
+    from stabnet_tpu_torch.utils import get_logger
 
     _synthetic(tmp_path)
     path = checkpoint("imagenet")
-    with caplog.at_level(logging.INFO, logger="stabnet_tpu_torch"):
+    # The port's logger does not propagate to the root logger, where caplog
+    # listens: hand caplog's handler to it for the call.
+    get_logger().addHandler(caplog.handler)
+    try:
         main(["train", "--config", "tiny", "--data", str(tmp_path / "data"),
               "--model-dir", str(tmp_path / "m"), "--log-dir", str(tmp_path / "log"),
               "--steps", "1", "--device", "cpu", "--imagenet-ckpt", path])
+    finally:
+        get_logger().removeHandler(caplog.handler)
     assert f"transferred ImageNet trunk from {path}" in caplog.text
     got = torch.load(os.path.join(tmp_path, "m", "1", "state.pt"), weights_only=True)["model"]
     lr = get_config("tiny").initial_learning_rate

@@ -1,9 +1,11 @@
 """The PyTorch port stands alone: it imports no JAX and nothing of the JAX
-package (and TensorFlow only inside `compat.load_tf_checkpoint`), it runs on
-CUDA unless the CPU is asked for, and its chip smoke script refuses to report
-success without a card."""
+package (and TensorFlow only inside the calls that read TF files:
+`compat.load_tf_checkpoint` and the TFRecord reader of `compat/tfrecord.py`),
+it runs on CUDA unless the CPU is asked for, its commands log INFO lines to
+stderr, and its chip smoke script refuses to report success without a card."""
 
 import os
+import re
 import subprocess
 import sys
 
@@ -19,7 +21,7 @@ names = [m.name for m in pkgutil.walk_packages(stabnet_tpu_torch.__path__,
                                                "stabnet_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 40, names
+assert len(names) >= 51, names
 bad = sorted(m for m in sys.modules
              if m in ("jax", "flax", "orbax", "stabnet_tpu", "tensorflow")
              or m.startswith(("jax.", "flax.", "orbax.", "stabnet_tpu.", "tensorflow.")))
@@ -85,3 +87,25 @@ def test_chip_smoke_fails_without_a_card():
     proc = _run([os.path.join(REPO, "chip_smoke.py")])
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_stabilize_logs_info_lines_to_stderr(tmp_path):
+    """The port's logger prints INFO in the JAX package's `time level
+    file:line] message` form, for every command, not only for `train`."""
+    cv2 = pytest.importorskip("cv2")
+    import numpy as np
+
+    os.makedirs(tmp_path / "unstable")
+    writer = cv2.VideoWriter(str(tmp_path / "unstable" / "demo.avi"),
+                             cv2.VideoWriter_fourcc(*"MJPG"), 30, (64, 48))
+    rng = np.random.RandomState(0)
+    for _ in range(2):
+        writer.write(rng.randint(0, 256, (48, 64, 3), dtype=np.uint8))
+    writer.release()
+    (tmp_path / "list").write_text("demo.avi\n")
+    proc = _run(["-m", "stabnet_tpu_torch.cli.main", "stabilize", "--config", "tiny",
+                 "--test-list", str(tmp_path / "list"), "--prefix", str(tmp_path),
+                 "--output-dir", str(tmp_path / "out"), "--device", "cpu"])
+    assert proc.returncode == 0, proc.stderr
+    assert re.search(r"^\d{4}-\d\d-\d\d \d\d:\d\d:\d\d,\d{3} INFO driver\.py:\d+\] "
+                     r"demo\.avi: 2 frames", proc.stderr, re.M), proc.stderr
