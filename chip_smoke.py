@@ -14,13 +14,14 @@ nonzero exit):
      (10, 288, 512, 2) and (20, 288, 512, 1), and at 5 channels (read at
      run time), on realistic and adversarial maps, both strict_edge modes;
      K2m (the serving warp: dense maps, black mask and sampler in one
-     launch) against its plain version, bit for bit, at S=1 and S=4 with
-     the frame read in place from the 13-channel stack, in the stack layout
+     launch) against its plain version, bit for bit, at S=1, 4 and 6 (the
+     bench's batch) with the frame read in place from the 13-channel stack, in the stack layout
      of a refine pass (also at S=10, the debug forward's batch), at 289x515, on a zoomed-out mesh with black borders
      and on a mesh with Z < 0 in some cells;
   3. K1 (uint8 color warp, fused map up-sample) and K3 (the same warp at
      full-resolution maps) against their plain versions, bit for bit, at
-     720p S=1 and S=4, 1080p, 719x1283 and zoomed maps, and at 360x640
+     720p S=1, 4 and 6, 1080p S=1 and 6 (the bench's batches), 719x1283
+     and zoomed maps, and at 360x640
      from maps too wide for K1 to stage their row pass;
   4. the serving path at v2_93 (bf16, seeded random weights, theta head
      scaled by 0.05) on a 40-frame synthetic 720p clip: StreamDriver at S=1
@@ -108,6 +109,14 @@ nonzero exit):
      nothing; then the debug forward once more in this process on a
      training batch with the step-4 weights: one K2m launch, bit for bit
      its plain version on the output, mask and maps;
+ 21. bench: `python -m stabnet_tpu_torch.cli.main bench` at its defaults
+     (v2_93 bf16, 720p S=6, T=61, 2 repeats; 1080p S2=6) in a process of
+     its own with STABNET_BENCH_DEADLINE_S=300: exit 0, all six legs, the
+     headline above 0, the paired device latency's p90 >= p50, the MFU
+     share in (0, 1.05] on the counted 22.780889088 GFLOP/frame, the card's
+     name and power limit on the stats line; the launches each leg adds to
+     the stats line's counts: K1 and K2m once per step of each run (warm-up
+     and repeats), no other kernel;
 and in phase 12 the card-against-CPU gap of fit_homographies split by
 cause (its normal equations summed in float64 on both devices).
 `python3 chip_smoke.py _dp_rank MODE ARGS...` is phase 17's rank process.
@@ -423,7 +432,7 @@ def phase_k2(gen: torch.Generator, dev):
 
     # K2m: (S, frame size, mesh zoom, stack channels last, cells negated).
     cases = [(1, (H, W), 1.0, False, False), (4, (H, W), 1.0, False, False),
-             (2, (H, W), 1.0, True, False), (10, (H, W), 1.0, True, False),
+             (6, (H, W), 1.0, False, False), (2, (H, W), 1.0, True, False), (10, (H, W), 1.0, True, False),
              (10, (H, W), 1.2, True, False), (1, (289, 515), 1.0, False, False),
              (2, (H, W), 1.2, False, False), (2, (H, W), 1.0, False, True)]
     shares = []
@@ -455,7 +464,7 @@ def phase_k2(gen: torch.Generator, dev):
           f"(10, {H}, {W}, 2), (20, {H}, {W}, 1) and (2, 72, 136, 5), realistic + "
           f"adversarial maps, strict_edge True/False; warp_mesh vs plain: max abs "
           f"{worst['warp_mesh']:.3g} (tolerance 0) on the output, mask and maps at "
-          f"S=1/4 (frame read in place from the stack), S=2 and 10 (the debug forward's "
+          f"S=1/4/6 (the bench's S=6; frame read in place from the stack), S=2 and 10 (the debug forward's "
           f"batch, also zoomed out) channels-last stack, "
           f"289x515, zoomed out and with negated cells (black shares {shares})")
     return worst
@@ -472,7 +481,8 @@ def phase_k1(gen: torch.Generator, dev):
     # pass K1 stages in shared memory, and once the model-scale 288 x 512
     # maps, too wide for that at 360 x 640.
     cases = [(1, (720, 1280), 1.0, (72, 128)), (4, (720, 1280), 1.0, (72, 128)),
-             (1, (1080, 1920), 1.0, (72, 128)), (1, (719, 1283), 1.0, (72, 128)),
+             (6, (720, 1280), 1.0, (72, 128)), (1, (1080, 1920), 1.0, (72, 128)),
+             (6, (1080, 1920), 1.0, (72, 128)), (1, (719, 1283), 1.0, (72, 128)),
              (2, (720, 1280), 1.15, (72, 128)), (1, (360, 640), 1.0, (288, 512))]
     for S, (Hf, Wf), zoom, lowres in cases:
         imc = torch.randint(0, 256, (S, 3, Hf, Wf), generator=gen,
@@ -496,7 +506,7 @@ def phase_k1(gen: torch.Generator, dev):
             check(err == 0, f"{name} S={S} {Hf}x{Wf} zoom={zoom}: max abs {err} LSB")
     print(f"[3 K1/K3] warp_uint8_cf_lowres vs plain on the card: max abs "
           f"{worst['warp_uint8_cf_lowres']} LSB, warp_uint8_cf vs plain: max abs "
-          f"{worst['warp_uint8_cf']} LSB (tolerance 0 for both) at 720p S=1/4, 1080p, "
+          f"{worst['warp_uint8_cf']} LSB (tolerance 0 for both) at 720p S=1/4/6, 1080p S=1/6 (the bench's S=6), "
           f"719x1283, zoomed maps, and 360x640 from 288x512 maps")
     return worst
 
@@ -2173,6 +2183,82 @@ def phase_debug_vis(card: str, tmp: str, data: str):
     return runs["vis"][0]
 
 
+# --- the bench -----------------------------------------------------------
+
+# Each of the bench's six legs, in its order, at its defaults (T=61, 2
+# repeats after one warm-up run): a stats key it reports and the serving
+# steps it runs, each step one K1 and one K2m launch.  The slope leg's short
+# clip has 21 frames; the online leg steps 3 x 8 frames.
+BENCH_LEGS = (("batch", "fps_720p_batch6_per_chip", 3 * 60),
+              ("out2", "fps_1080p_batch6_per_chip", 3 * 60),
+              ("single_stream", "fps_720p_single_stream", 3 * 60),
+              ("latency_slope", "online_frame_latency_device_ms_slope", 3 * 20),
+              ("online_latency", "online_latency_device_p50_ms", 3 * 8),
+              ("pipelined", "online_pipelined_wall_fps", 60))
+
+
+def phase_bench(card: str):
+    """`bench` through the port's CLI at its defaults in a process of its
+    own, under a 300 s deadline: exit 0, all six legs, the headline above 0,
+    p90 >= p50, the MFU share in (0, 1.05], the card's name and power limit
+    on the stats line.  The stats line after each leg carries the bench
+    process's launch counts: each leg must add K1 and K2m once per serving
+    step it ran (warm-ups included) and no other kernel.  Returns the whole
+    run's launches."""
+    from stabnet_tpu_torch import bench
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    env = {k: v for k, v in os.environ.items() if not k.startswith("STABNET_BENCH_")}
+    env["STABNET_BENCH_DEADLINE_S"] = "300"
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "stabnet_tpu_torch.cli.main", "bench"],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                          capture_output=True, text=True, timeout=420)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"bench exit {proc.returncode}:\n{proc.stderr[-4000:]}")
+    check("restored completed legs" not in proc.stderr,
+          f"bench retried an attempt, its launches are split:\n{proc.stderr[-4000:]}")
+    heads = [json.loads(ln) for ln in proc.stdout.strip().splitlines()]
+    stats = [json.loads(ln) for ln in proc.stderr.splitlines() if ln.startswith("{")]
+    check(len(heads) == len(stats) == len(BENCH_LEGS),
+          f"bench printed {len(heads)} headline and {len(stats)} stats lines, one per "
+          f"leg expected:\n{proc.stderr[-4000:]}")
+    head, st = heads[-1], stats[-1]
+    missing = [leg for leg, key, _ in BENCH_LEGS if st.get(key) is None]
+    check(not missing, f"bench legs missing {missing}:\n{proc.stderr[-4000:]}")
+    check(head["metric"] == "stabilized_720p_throughput" and head["value"] > 0
+          and head["vs_baseline"] is None, f"bench headline {head}")
+    check(st["online_latency_device_p90_ms"] >= st["online_latency_device_p50_ms"],
+          f"bench device latency p90 {st['online_latency_device_p90_ms']} < p50 "
+          f"{st['online_latency_device_p50_ms']}")
+    check(st["flops_per_frame_g"] == 22.780889088 and 0 < st["mfu_vs_bf16_peak"] <= 1.05,
+          f"bench MFU {st['mfu_vs_bf16_peak']} at {st['flops_per_frame_g']} GFLOP/frame")
+    check(st["device"] == torch.cuda.get_device_name(0) and st["power_limit_w"] is not None,
+          f"bench device {st['device']}, power limit {st['power_limit_w']}")
+    before = {k: 0 for k in DOCTOR_NAMES}
+    for (leg, key, steps), line in zip(BENCH_LEGS, stats):
+        # The batch leg runs S streams on every card, one launch per card.
+        per_leg = steps * (st["n_devices"] if leg == "batch" else 1)
+        got = {k: line["kernel_launches"][k] - before[k] for k in before}
+        want = {k: 0 for k in before} | {"warp_mesh": per_leg, "warp_uint8_cf_lowres": per_leg}
+        check(key in line and got == want,
+              f"bench leg {leg}: launches {got}, expected {want}")
+        before = line["kernel_launches"]
+    marks = [ln[len("bench: "):] for ln in proc.stderr.splitlines() if ln.startswith("bench: +")]
+    print(f"[21 bench] {card} | cli.main bench at its defaults in {wall:.1f} s, exit 0, six "
+          f"legs: {head['value']} frames/s per card at 720p S=6, 1080p "
+          f"{head['fps_1080p_per_chip']}, MFU {st['mfu_vs_bf16_peak']} of "
+          f"{bench.peak_tflops(st['device'])} TFLOP/s bf16 at {st['flops_per_frame_g']} "
+          f"GFLOP/frame, device latency p50 {st['online_latency_device_p50_ms']} p90 "
+          f"{st['online_latency_device_p90_ms']} ms; launches per leg "
+          f"{[steps for _, _, steps in BENCH_LEGS]} each of K1 and K2m, no other kernel | "
+          f"{'; '.join(marks)}")
+    print(f"[21 bench] stats {json.dumps(st)}")
+    print(f"[21 bench] headline {json.dumps(head)}")
+    return before
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2207,6 +2293,7 @@ def main() -> int:
         dp_launches = phase_data_parallel(card, dev, tmp, data)
         doctor_launches = phase_doctor(card)
         vis_launches = phase_debug_vis(card, tmp, data)
+    bench_launches = phase_bench(card)
     # K2, K4 and K6b run on the training path: their launches are a
     # segment's, at the shapes of the K6 forward and of the backwards.
     kernels.insert(0, kernel_row("bilinear_sample", "stabnet_tpu/ops/pallas_warp.py:469",
@@ -2228,6 +2315,7 @@ def main() -> int:
         row["launches_data_parallel_rank"] = dp_launches[row["name"]]
         row["launches_doctor"] = doctor_launches[row["name"]]
         row["launches_debug_vis"] = vis_launches[row["name"]]
+        row["launches_bench"] = bench_launches[row["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,7 +33,6 @@ from __future__ import annotations
 import json
 import os
 import signal
-import socket
 import subprocess
 import sys
 import time
@@ -176,7 +175,8 @@ def kernel_probe(device: str) -> dict:
 
 def mesh_probe() -> dict:
     """Shard an (8, 4) batch over eight CPU devices and sum it with one
-    all-reduce in a one-rank gloo group on a free local port."""
+    all-reduce in a one-rank gloo group whose TCP store the OS gives a
+    free local port."""
     import torch
     import torch.distributed as dist
 
@@ -187,11 +187,10 @@ def mesh_probe() -> dict:
     shards = shard_batch(torch.arange(float(8 * 4)).reshape(8, 4), devices)
     if [tuple(s.shape) for s in shards] != [(1, 4)] * 8:
         raise RuntimeError(f"shards {[tuple(s.shape) for s in shards]}")
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            world_size=1, rank=0)
+    # The store binds a port the OS picks: no other process can take it
+    # between a pick and the bind.
+    store = dist.TCPStore("localhost", 0, world_size=1, is_master=True)
+    dist.init_process_group("gloo", store=store, world_size=1, rank=0)
     try:
         total = torch.stack([s.sum() for s in shards]).sum()
         dist.all_reduce(total)

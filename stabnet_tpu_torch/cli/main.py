@@ -34,6 +34,7 @@ Usage:
       --out dumps/ [--num 2] [--device cuda|cpu]
   python -m stabnet_tpu_torch.cli.main doctor [--timeout 120] \
       [--only host backend kernels mesh] [--compact] [--device cuda|cpu]
+  python -m stabnet_tpu_torch.cli.main bench [--device cuda|cpu]
 
 `train` reads record shards from `<data>/train` and, if it exists,
 `<data>/test` (reference: train_bundle_nobm.py:34-37); `--compute-flow`
@@ -73,7 +74,9 @@ through OpenCV; no flow, so train them with `--compute-flow`),
 `inspect-data` dumps examples as images; `train --debug-vis` writes the
 reference's debug mosaics.  `doctor` probes the card in bounded
 subprocesses: liveness, every kernel against its plain version, and the
-host side of data parallelism; it exits 1 when a check fails.
+host side of data parallelism; it exits 1 when a check fails.  `bench` runs
+the headline benchmark (`stabnet_tpu_torch/bench.py`, configured by its
+STABNET_BENCH_* variables): JSON headline lines on stdout, stats on stderr.
 """
 
 from __future__ import annotations
@@ -496,6 +499,14 @@ def cmd_inspect_data(args):
     print(f"wrote inspection dumps -> {args.out}")
 
 
+def cmd_bench(args):
+    """The headline benchmark through its retry wrapper, as `python -m
+    stabnet_tpu_torch.bench` runs it (stabnet_tpu/cli/main.py:449-459)."""
+    from stabnet_tpu_torch import bench
+
+    bench._main_with_retries(args.device)
+
+
 def cmd_make_synthetic(args):
     from stabnet_tpu_torch.config import get_config
     from stabnet_tpu_torch.data.records import write_synthetic_dataset
@@ -677,7 +688,12 @@ def main(argv=None):
                    help="the device that augments (default cuda)")
     p.set_defaults(fn=cmd_inspect_data)
 
+    from stabnet_tpu_torch import bench
     from stabnet_tpu_torch.cli import doctor
+
+    p = sub.add_parser("bench", help="run the headline benchmark")
+    bench.add_arguments(p)
+    p.set_defaults(fn=cmd_bench)
 
     doctor.add_parser(sub)
     args = parser.parse_args(argv)

@@ -307,7 +307,9 @@ class StreamEngine:
         self._replicas = {}   # device list -> one model replica per device
 
     def _put(self, a) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a)).to(self.device)
+        """`a` (an array, or a tensor on any device) on the engine's device."""
+        return (a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
+                ).to(self.device)
 
     def _put_color(self, color) -> torch.Tensor:
         """(S, Hf, Wf, 3) uint8 -> (S, 3, Hf, Wf) on the device (one copy
@@ -364,31 +366,41 @@ class StreamEngine:
         len(devices) streams.  Returns (warped (S, T-1, Ho, Wo, 3), state)
         gathered on the first device.  The JAX package's
         `stabilize_clips_sharded` (stabnet_tpu/stream/engine.py:460-511).
+        `clip_gray` and `clip_color` may also come split, as lists of one
+        shard per device (the bench places them before its timed window).
         """
         from stabnet_tpu_torch.parallel import data_devices, replicated, shard_batch
 
         devs = data_devices(devices if devices is not None or self.device.type == "cuda"
                             else [self.device])
-        S = clip_gray.shape[0]
-        if S % len(devs):
-            raise ValueError(
-                f"S={S} streams not divisible by the {len(devs)}-device mesh; pad "
-                f"the batch (driver: pad_streams) or drop sharding")
+        if isinstance(clip_gray, (list, tuple)):
+            # Already split, one shard per device (placed there beforehand).
+            if not len(clip_gray) == len(clip_color) == len(devs):
+                raise ValueError(f"{len(clip_gray)} and {len(clip_color)} shards for "
+                                 f"the {len(devs)}-device mesh")
+            grays = [torch.as_tensor(g).to(d) for g, d in zip(clip_gray, devs)]
+            colors = [torch.as_tensor(c).to(d) for c, d in zip(clip_color, devs)]
+        else:
+            S = clip_gray.shape[0]
+            if S % len(devs):
+                raise ValueError(
+                    f"S={S} streams not divisible by the {len(devs)}-device mesh; pad "
+                    f"the batch (driver: pad_streams) or drop sharding")
+            grays = shard_batch(clip_gray, devs)
+            colors = shard_batch(clip_color, devs)
         key = tuple(devs)
         if key not in self._replicas:
             self._replicas[key] = replicated(self.model, devs)
         models = self._replicas[key]
-        grays = shard_batch(clip_gray, devs)
-        colors = shard_batch(clip_color, devs)
         valids = (np.split(np.asarray(valid, bool), len(devs)) if valid is not None
                   else [None] * len(devs))
-        out_hw = self.out_hw or tuple(clip_color.shape[2:4])
+        out_hw = self.out_hw or tuple(colors[0].shape[2:4])
         scans = [_scan_steps(m, init_state(g[:, 0], self.cfg), g[:, 1:], c[:, 1:],
                              self.cfg, self.refine, out_hw, v)
                  for m, g, c, v in zip(models, grays, colors, valids)]
         warped = [[] for _ in devs]
         states = [None] * len(devs)
-        for _ in range(clip_gray.shape[1] - 1):
+        for _ in range(grays[0].shape[1] - 1):
             for i, scan in enumerate(scans):
                 w, states[i] = next(scan)
                 warped[i].append(w)

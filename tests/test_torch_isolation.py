@@ -42,6 +42,30 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert "imported" in proc.stdout
 
 
+_BENCH_ALONE = """
+import sys
+import stabnet_tpu_torch.bench
+from stabnet_tpu_torch.cli.main import main
+try:
+    main(["bench", "--help"])
+except SystemExit as e:
+    assert e.code == 0, e.code
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "flax", "orbax", "stabnet_tpu", "bench")
+             or m.startswith(("jax.", "flax.", "orbax.", "stabnet_tpu.")))
+assert not bad, bad
+print("alone")
+"""
+
+
+def test_bench_imports_no_jax_and_nothing_of_the_jax_bench():
+    """The port's bench and the CLI's `bench --help` import no JAX, nothing
+    of the JAX package and not the root bench.py."""
+    proc = _run(["-c", _BENCH_ALONE])
+    assert proc.returncode == 0, proc.stderr
+    assert "alone" in proc.stdout and "--device" in proc.stdout
+
+
 def test_engine_defaults_to_cuda_and_raises_without_it():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; the default device works")

@@ -30,6 +30,7 @@ import os
 import socket
 import subprocess
 import sys
+import time
 
 import jax
 import numpy as np
@@ -66,6 +67,31 @@ def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
         return s.getsockname()[1]
+
+
+def _run_on_a_free_port(start, tries: int = 3):
+    """Run the workers that `start(port)` launches on a port picked free;
+    pick again if another process bound the port between the pick and the
+    workers' own bind (EADDRINUSE).  Each worker is polled and all are
+    killed once one fails: its peers would wait for it until the timeout."""
+    for attempt in range(tries):
+        procs = start(str(_free_port()))
+        deadline = time.monotonic() + TIMEOUT
+        try:
+            while (any(p.poll() is None for p in procs)
+                   and not any(p.returncode for p in procs)
+                   and time.monotonic() < deadline):
+                time.sleep(0.1)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        outs = [p.communicate()[0] for p in procs]
+        if attempt + 1 < tries and any("EADDRINUSE" in out for out in outs):
+            continue
+        for p, out in zip(procs, outs):
+            assert p.returncode == 0, out[-4000:]
+        return outs
 
 
 def _env():
@@ -151,10 +177,10 @@ def test_batchnorm_across_two_ranks_matches_flax_over_the_batch(tmp_path):
          "running_var": rng.uniform(0.5, 1.5, C).astype(np.float32)}
     path = str(tmp_path / "bn.npz")
     np.savez(path, **z)
-    port = str(_free_port())
-    _run([subprocess.Popen([sys.executable, "-c", _BN_WORKER, str(r), port, path],
-                           cwd=REPO, env=_env(), stdout=subprocess.PIPE,
-                           stderr=subprocess.STDOUT, text=True) for r in range(2)])
+    _run_on_a_free_port(lambda port: [
+        subprocess.Popen([sys.executable, "-c", _BN_WORKER, str(r), port, path],
+                         cwd=REPO, env=_env(), stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True) for r in range(2)])
     ranks = [np.load(path[:-4] + f"_rank{r}.npz") for r in range(2)]
 
     flax_bn = nn.BatchNorm(use_running_average=False, momentum=0.997, epsilon=1e-5,
@@ -202,9 +228,10 @@ def _train_args(data, out, steps=2):
 
 
 def _launch(nproc, args):
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(nproc),
-           "--master-addr", "localhost", "--master-port", str(_free_port()),
-           "-m", "stabnet_tpu_torch.cli.main", *args]
+    # --standalone: the launcher's store binds a port the OS picks, so no
+    # other process can take it between a pick and the bind.
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(nproc), "-m", "stabnet_tpu_torch.cli.main", *args]
     return _run([subprocess.Popen(cmd, cwd=REPO, env=_env(), stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)])[0]
 
@@ -313,6 +340,22 @@ def test_sharded_serving_matches_each_shard_alone_and_jax(serving):
     np.testing.assert_array_equal(black, jblack)
     assert ([crop_rectangle(b) for b in black]
             == [tuple(jax_crop_rectangle(b)) for b in jblack])
+
+
+def test_sharded_serving_takes_shards_placed_beforehand(serving):
+    """The clips split beforehand, one shard per device (the bench places
+    them before its timed window), give what the whole arrays give."""
+    _, engine, _, grays, colors, valid = serving
+    want, wstate = engine.stabilize_clips_sharded(grays, colors, devices=["cpu", "cpu"],
+                                                  valid=valid)
+    halves = [torch.from_numpy(a[lo: lo + 2]) for a in (grays, colors) for lo in (0, 2)]
+    got, state = engine.stabilize_clips_sharded(halves[:2], halves[2:],
+                                                devices=["cpu", "cpu"], valid=valid)
+    assert torch.equal(got, want)
+    assert torch.equal(state.all_black, wstate.all_black)
+    assert torch.equal(state.frames, wstate.frames)
+    with pytest.raises(ValueError, match="shards"):
+        engine.stabilize_clips_sharded(halves[:1], halves[2:3], devices=["cpu", "cpu"])
 
 
 def test_sharded_serving_refusals(serving):

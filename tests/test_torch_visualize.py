@@ -208,14 +208,10 @@ def test_train_debug_vis_changes_nothing_of_the_run(data, tmp_path):
 
 
 def _launch_two_ranks(args):
-    import socket
-
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "2",
-           "--master-addr", "localhost", "--master-port", str(port),
-           "-m", "stabnet_tpu_torch.cli.main", *args]
+    # --standalone: the launcher's store binds a port the OS picks, so no
+    # other process can take it between a pick and the bind.
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "2", "-m", "stabnet_tpu_torch.cli.main", *args]
     proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300,
                           env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1"))
     assert proc.returncode == 0, (proc.stdout + proc.stderr)[-4000:]
