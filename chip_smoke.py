@@ -15,9 +15,12 @@ nonzero exit):
      run time), on realistic and adversarial maps, both strict_edge modes;
      K2m (the serving warp: dense maps, black mask and sampler in one
      launch) against its plain version, bit for bit, at S=1, 4 and 6 (the
-     bench's batch) with the frame read in place from the 13-channel stack, in the stack layout
-     of a refine pass (also at S=10, the debug forward's batch), at 289x515, on a zoomed-out mesh with black borders
-     and on a mesh with Z < 0 in some cells;
+     bench's batch) with the frame read in place from the 13-channel stack,
+     in the stack layout of a refine pass (also at S=10, the debug forward's
+     batch), at 289x515 (S=1 and 6), on a zoomed-out mesh with black
+     borders, on a mesh with Z < 0 in some cells and on 8x8 meshes: each
+     layout the wrapper picks (one or four pixels per thread) at a full and
+     a ragged right edge and on both mesh sizes;
   3. K1 (uint8 color warp, fused map up-sample) and K3 (the same warp at
      full-resolution maps) against their plain versions, bit for bit, at
      720p S=1, 4 and 6, 1080p S=1 and 6 (the bench's batches), 719x1283
@@ -29,10 +32,12 @@ nonzero exit):
      read around each run;
   5. card against CPU in f32 (TF32 off), 8 frames;
   6. serving times: CUDA events, 5 warm-ups, median of 50 runs; K2m at
-     S=1 and S=4 beside the unfused chain it replaces (dense maps, black
-     mask, frame copy, K2), K2 at S=1 and S=4, K1 and K3 at 720p S=1 and
-     S=4 and at 1080p (K3 is on no path, as in the JAX package); the S=1
-     path's device operations per frame;
+     S=1, 4, 6 and 10 (channels last) beside an empty kernel at its grid
+     (the launch floor) and, at S=1 and S=4, the unfused chain it replaces
+     (dense maps, black mask, frame copy, K2), K2 at S=1 and S=4, K1 and K3
+     at 720p S=1 and S=4 and at 1080p (K3 is on no path, as in the JAX
+     package), K1 at the bench's S=6 at 720p and 1080p; the S=1 path's
+     device operations per frame;
   7. K4 (splat) and K6b (map gradient) against their plain versions on the
      card, realistic and adversarial maps, K4 also on flow-like maps (every
      pass-2 tile sums in shared memory) and half of each; K5/K6 through
@@ -191,14 +196,15 @@ def exact_ndc(px: np.ndarray, size: int):
 
 
 def realistic_homographies(S: int, gen: torch.Generator, device,
-                           spread: float = 0.05, zoom: float = 1.0):
-    """(S, 4, 4, 3, 3) cell homographies of random meshes (vertex offsets
-    ~ N(0, spread), clamped as theta_to_mesh clamps)."""
+                           spread: float = 0.05, zoom: float = 1.0, grid: int = 4):
+    """(S, grid, grid, 3, 3) cell homographies of random meshes (vertex
+    offsets ~ N(0, spread * 4 / grid), clamped as theta_to_mesh clamps)."""
     from stabnet_tpu_torch.ops import base_mesh, mesh_to_homographies
 
-    mesh = torch.from_numpy(base_mesh(4, 4)) * zoom
-    mesh = (mesh + spread * torch.randn((S, 5, 5, 2), generator=gen)).clamp(-1.25, 1.25)
-    return mesh_to_homographies(mesh.to(device), 4, 4)
+    mesh = torch.from_numpy(base_mesh(grid, grid)) * zoom
+    noise = spread * 4 / grid * torch.randn((S, grid + 1, grid + 1, 2), generator=gen)
+    mesh = (mesh + noise).clamp(-1.25, 1.25)
+    return mesh_to_homographies(mesh.to(device), grid, grid)
 
 
 def realistic_maps(S: int, H: int, W: int, gen: torch.Generator, device,
@@ -430,26 +436,34 @@ def phase_k2(gen: torch.Generator, dev):
         check(bool((strict_out[..., 0].cpu()[edge] == 0).all()),
               "K2 strict edge: a sample at x == W-1 is not 0")
 
-    # K2m: (S, frame size, mesh zoom, stack channels last, cells negated).
-    cases = [(1, (H, W), 1.0, False, False), (4, (H, W), 1.0, False, False),
-             (6, (H, W), 1.0, False, False), (2, (H, W), 1.0, True, False), (10, (H, W), 1.0, True, False),
-             (10, (H, W), 1.2, True, False), (1, (289, 515), 1.0, False, False),
-             (2, (H, W), 1.2, False, False), (2, (H, W), 1.0, False, True)]
-    shares = []
-    for S, (h, w), zoom, channels_last, negate in cases:
+    # K2m: (S, frame size, mesh zoom, stack channels last, cells negated,
+    # mesh cells per side).  The wrapper runs one pixel per thread up to S=2
+    # at 288 x 512 and on a channels-last stack, four beyond: each of them
+    # at a ragged right edge (515 columns) and on an 8 x 8 mesh too.
+    cases = [(1, (H, W), 1.0, False, False, 4), (4, (H, W), 1.0, False, False, 4),
+             (6, (H, W), 1.0, False, False, 4), (2, (H, W), 1.0, True, False, 4),
+             (10, (H, W), 1.0, True, False, 4), (10, (H, W), 1.2, True, False, 4),
+             (1, (289, 515), 1.0, False, False, 4), (6, (289, 515), 1.0, False, False, 4),
+             (2, (H, W), 1.2, False, False, 4), (2, (H, W), 1.0, False, True, 4),
+             (1, (H, W), 1.0, False, False, 8), (6, (H, W), 1.0, False, False, 8),
+             (6, (289, 515), 1.0, True, False, 8)]
+    shares, reached = [], set()
+    for S, (h, w), zoom, channels_last, negate, g in cases:
         frame = stack_frame(S, h, w, gen, dev, channels_last)
-        Hs = realistic_homographies(S, gen, dev, zoom=zoom)
+        Hs = realistic_homographies(S, gen, dev, zoom=zoom, grid=g)
         if negate:
             # -H maps as H does, through the sign guard's other branch.
             Hs[:, 1:3, 1:3] *= -1.0
-        tables = mesh_tables(h, w, 4, 4, dev)
+        tables = mesh_tables(h, w, g, g, dev)
         got = cuda_warp.warp_mesh(frame, Hs, tables)
         want = cuda_warp.warp_mesh_plain(frame, Hs, tables)
         torch.cuda.synchronize()
         err = max(float((a - b).abs().max()) for a, b in zip(got, want))
         worst["warp_mesh"] = max(worst["warp_mesh"], err)
         check(all(torch.equal(a, b) for a, b in zip(got, want)),
-              f"K2m S={S} {h}x{w} zoom={zoom} negated={negate}: max abs {err}")
+              f"K2m S={S} {h}x{w} {g}x{g} zoom={zoom} negated={negate}: max abs {err}")
+        pix = cuda_warp.warp_mesh_pix(S, h, w, frame.stride(2))
+        reached.add((pix, w % (32 * pix) != 0, g))
         black = float(got[1].mean())
         if zoom > 1.0:
             check(0.05 < black < 0.95, f"K2m zoomed-out mesh: black share {black}")
@@ -459,14 +473,22 @@ def phase_k2(gen: torch.Generator, dev):
             Z = z_row[..., 0] * gx + z_row[..., 1] * gy[:, None] + z_row[..., 2]
             check(float((Z < 0).float().mean()) > 0.2, "K2m: no Z < 0 in the negated cells")
         shares.append(round(black, 4))
+    # Every layout the wrapper picks, at a full and a ragged right edge and
+    # on both mesh sizes.
+    for pix in (1, 4):
+        check({(pix, False, 4), (pix, True, 4)} <= reached
+              and any(r[0] == pix and r[2] == 8 for r in reached),
+              f"K2m at {pix} pixels per thread: layouts reached {sorted(reached)}")
     print(f"[2 K2/K2m] bilinear_sample vs plain on the card: max abs "
           f"{worst['bilinear_sample']:.3g} (tolerance 0) at (1|4, {H}, {W}, 1), "
           f"(10, {H}, {W}, 2), (20, {H}, {W}, 1) and (2, 72, 136, 5), realistic + "
           f"adversarial maps, strict_edge True/False; warp_mesh vs plain: max abs "
           f"{worst['warp_mesh']:.3g} (tolerance 0) on the output, mask and maps at "
-          f"S=1/4/6 (the bench's S=6; frame read in place from the stack), S=2 and 10 (the debug forward's "
-          f"batch, also zoomed out) channels-last stack, "
-          f"289x515, zoomed out and with negated cells (black shares {shares})")
+          f"S=1/4/6 (the bench's S=6; frame read in place from the stack), S=2 and 10 "
+          f"(the debug forward's batch, also zoomed out) channels-last stack, "
+          f"289x515 at S=1 and 6, zoomed out, with negated cells, and on 8x8 meshes at "
+          f"S=1 and 6 (black shares {shares}); (pixels per thread, ragged edge, "
+          f"mesh) reached: {sorted(reached)}")
     return worst
 
 
@@ -637,7 +659,8 @@ def phase_times(card: str, gen: torch.Generator, dev, engine, driver, clips,
     H, W = 288, 512
     timed = {}
 
-    def record(name, label, kern, plain, lib, nbytes, ops, plain_reps=50, chain=None):
+    def record(name, label, kern, plain, lib, nbytes, ops, plain_reps=50, chain=None,
+               floor=None):
         t = {"ms": device_ms(kern), "plain_ms": device_ms(plain, calls=5, reps=plain_reps),
              "library_ms": device_ms(lib) if lib else None, "call_ms": call_ms(kern)}
         t_bytes, t_ops = nbytes / bw * 1e3, ops / f32_peak * 1e3
@@ -648,6 +671,9 @@ def phase_times(card: str, gen: torch.Generator, dev, engine, driver, clips,
             t["chain_ms"], t["chain_call_ms"] = device_ms(chain), call_ms(chain)
             extra = (f", the unfused chain it replaces {t['chain_ms']:.5f} ms device "
                      f"({t['chain_call_ms']:.5f} ms per call from the host)")
+        if floor is not None:
+            t["floor_ms"] = device_ms(floor)
+            extra += f", an empty kernel at its grid {t['floor_ms']:.5f} ms device"
         timed[(name, label)] = t
         lib_txt = "none" if lib is None else f"{t['library_ms']:.5f} ms"
         print(f"[6 times {name} {label}] {card} | kernel {t['ms']:.5f} ms device "
@@ -673,13 +699,16 @@ def phase_times(card: str, gen: torch.Generator, dev, engine, driver, clips,
                                      padding_mode="zeros", align_corners=False),
                4 * (3 * xm.numel() + im.numel()), (24 + 7) * xm.numel())
     # K2m on the path's inputs: the stack's current frame, in place, and the
-    # cell homographies; beside it the chain it replaces, as the parent's
-    # `transformer` ran it after the solve.  Bytes: the frame, the output,
-    # the mask and both maps, the homographies and the four tables.  f32
-    # operations per pixel: the map 3 x 4 (2 mul, 2 add), the sign guard 2
-    # (compare, add), 2 divides, the mask's 4 compares, then K2's 24 + 7.
-    for S in (1, 4):
-        frame = stack_frame(S, H, W, gen, dev)
+    # cell homographies, at S=1 (online), 4 (the serving clip), 6 (the
+    # bench's batch) and 10 (the debug forward's batch, channels last);
+    # beside it an empty kernel at the grid it launches, and at S=1 and 4
+    # the chain it replaces, as the parent's `transformer` ran it after the
+    # solve.  Bytes: the frame, the output, the mask and both maps, the
+    # homographies and the four tables.  f32 operations per pixel: the map
+    # 3 x 4 (2 mul, 2 add), the sign guard 2 (compare, add), 2 divides, the
+    # mask's 4 compares, then K2's 24 + 7.
+    for S in (1, 4, 6, 10):
+        frame = stack_frame(S, H, W, gen, dev, channels_last=S == 10)
         Hs = realistic_homographies(S, gen, dev)
         tables = mesh_tables(H, W, 4, 4, dev)
 
@@ -690,20 +719,26 @@ def phase_times(card: str, gen: torch.Generator, dev, engine, driver, clips,
                     black_mask(x_map, y_map))
 
         n = S * H * W
+        pix = cuda_warp.warp_mesh_pix(S, H, W, frame.stride(2))
         record("warp_mesh", f"S={S}",
                lambda: cuda_warp.warp_mesh(frame, Hs, tables),
                lambda: cuda_warp.warp_mesh_plain(frame, Hs, tables), None,
                4 * (5 * n + Hs.numel() + 2 * (H + W)), (12 + 2 + 2 + 4 + 24 + 7) * n,
-               chain=chain)
+               plain_reps=50 if S == 1 else 10, chain=chain if S <= 4 else None,
+               floor=lambda: cuda_warp.empty_launch(S, H, W, pix, dev))
     # The color warps at the serving shapes (the clip's frames at 720p, a
     # random frame at 1080p): K1 from the model-scale maps' 4x-down
     # resize, K3 from those maps up-sampled to the frame.
     # The plain versions repeat the kernels' arithmetic and are no yardstick
     # of speed: away from the main shape, 10 replays of 5 calls time them.
+    # K1 also at the bench's batch, S=6 at 720p and 1080p (K3, on no path,
+    # not there).
     for label, S, (Hf, Wf), plain_reps in (("S=1 720p", 1, CLIP_HW, 50),
                                            ("S=4 720p", 4, CLIP_HW, 10),
-                                           ("S=1 1080p", 1, (1080, 1920), 10)):
-        if (Hf, Wf) == CLIP_HW:
+                                           ("S=1 1080p", 1, (1080, 1920), 10),
+                                           ("S=6 720p", 6, CLIP_HW, 10),
+                                           ("S=6 1080p", 6, (1080, 1920), 10)):
+        if (Hf, Wf) == CLIP_HW and S <= clips.shape[0]:
             imc = torch.from_numpy(clips[:S, 1]).permute(0, 3, 1, 2).contiguous().to(dev)
         else:
             imc = torch.randint(0, 256, (S, 3, Hf, Wf), generator=gen,
@@ -719,11 +754,12 @@ def phase_times(card: str, gen: torch.Generator, dev, engine, driver, clips,
                lambda: cuda_warp.warp_uint8_cf_lowres_plain(imc, xs, ys, (Hf, Wf)),
                None, 8 * xs.numel() + imc.numel() + 3 * n_out,
                (18 + 24 + 10 * 3) * n_out, plain_reps)
-        record("warp_uint8_cf", label,
-               lambda: cuda_warp.warp_uint8_cf(imc, xf, yf),
-               lambda: cuda_warp.warp_uint8_cf_plain(imc, xf, yf),
-               None, 8 * xf.numel() + imc.numel() + 3 * n_out, (24 + 10 * 3) * n_out,
-               plain_reps)
+        if S < 6:
+            record("warp_uint8_cf", label,
+                   lambda: cuda_warp.warp_uint8_cf(imc, xf, yf),
+                   lambda: cuda_warp.warp_uint8_cf_plain(imc, xf, yf),
+                   None, 8 * xf.numel() + imc.numel() + 3 * n_out, (24 + 10 * 3) * n_out,
+                   plain_reps)
 
     T = clips.shape[1]
     torch.cuda.synchronize()
@@ -769,8 +805,8 @@ def kernel_row(name, replaces, launches, err, timed, label, source="warp.cu"):
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"], "call_ms": t["call_ms"],
-            **{k: t[k] for k in ("chain_ms", "chain_call_ms", "passes", "flow_maps_ms")
-               if k in t},
+            **{k: t[k] for k in ("chain_ms", "chain_call_ms", "floor_ms", "passes",
+                                 "flow_maps_ms") if k in t},
             "shape": label, "other_shapes": others}
 
 

@@ -7,10 +7,13 @@ on one CUDA card, in turns.
 Each `label=dir` runs, in the order given, in a process of its own with
 `dir`'s `stabnet_tpu_torch` first on the path (its kernels built from its own
 csrc/), and prints one JSON line: K2 at (1, 288, 512, 1), (10, 288, 512, 2)
-and (20, 288, 512, 1) on mesh maps; `ops.warp.transformer(U, mesh, 4, 4)`
-under inference mode at S=1 and S=4, U the current frame as a view of the
-13-channel input stack, as the serving path hands it over (device time and
-time per call from the host; whatever chain the checkout runs); the
+and (20, 288, 512, 1) on mesh maps; K2m (`cuda_warp.warp_mesh`, device
+time, and where the checkout has it the empty kernel at the grid K2m picks)
+and `ops.warp.transformer(U, mesh, 4, 4)` under inference mode at S=1, 4, 6
+and 10, U the current frame as a view of the 13-channel input stack, as the
+serving path hands it over (channels last at S=10, as the debug forward
+does; device time and time per call from the host; whatever chain the
+checkout runs); the
 serving step at S=1 (v2_93 bf16, random weights, 720p): device operations
 and kernel time per frame over 10 frames and the wall time per frame over
 20 (chip_smoke.profile_path); K1 (device time and time per call from the
@@ -48,7 +51,8 @@ def one(label: str, root: str) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
-    from stabnet_tpu_torch.ops import base_mesh, cuda_build, cuda_warp, resize_bilinear_bhw
+    from stabnet_tpu_torch.ops import (base_mesh, cuda_build, cuda_warp, mesh_tables,
+                                       mesh_to_homographies, resize_bilinear_bhw)
     from stabnet_tpu_torch.ops.warp import transformer
 
     assert cuda_build.PKG_DIR.startswith(os.path.abspath(root)), cuda_build.PKG_DIR
@@ -62,11 +66,22 @@ def one(label: str, root: str) -> dict:
         im = (torch.rand((B, H, W, C), generator=gen) - 0.5).to(dev)
         xm, ym = cs.realistic_maps(B, H, W, gen, dev)
         res[f"K2 ({B}, {H}, {W}, {C})"] = cs.device_ms(lambda: cuda_warp.bilinear_sample(im, xm, ym))
-    for S in (1, 4):
-        U = cs.stack_frame(S, H, W, gen, dev)
+    # The serving warp at the path's batches: S=1 (online), 4 (chip_smoke's
+    # clip), 6 (the bench's batch) on the stack as `assemble_input` lays it
+    # out, 10 (the debug forward's batch) on a channels-last stack.
+    tables = mesh_tables(H, W, 4, 4, dev)
+    for S in (1, 4, 6, 10):
+        U = cs.stack_frame(S, H, W, gen, dev, channels_last=S == 10)
         mesh = torch.from_numpy(base_mesh(4, 4))
         mesh = (mesh + 0.05 * torch.randn((S, 5, 5, 2), generator=gen)).to(dev)
         with torch.inference_mode():
+            Hs = mesh_to_homographies(mesh, 4, 4)
+            res[f"K2m S={S}"] = cs.device_ms(lambda: cuda_warp.warp_mesh(U, Hs, tables))
+            if hasattr(cuda_warp, "empty_launch"):
+                pix = cuda_warp.warp_mesh_pix(S, H, W, U.stride(2))
+                res[f"K2m S={S} pixels per thread"] = pix
+                res[f"empty kernel at K2m's S={S} grid"] = cs.device_ms(
+                    lambda: cuda_warp.empty_launch(S, H, W, pix, dev))
             warp = lambda: transformer(U, mesh, 4, 4)
             res[f"transformer S={S} device_ms"] = cs.device_ms(warp)
             res[f"transformer S={S} call_ms"] = cs.call_ms(warp)

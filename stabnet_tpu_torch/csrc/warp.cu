@@ -12,7 +12,8 @@
 //     Replaces the same sampler together with the dense maps and the black
 //     mask that feed it (stabnet_tpu/ops/warp.py:70-111, `dense_maps` and
 //     `black_mask`): the serving warp of the current frame at model scale,
-//     (S, 288, 512, 1), `refine` times per frame.  Each pixel's map value
+//     (S, 288, 512, 1), `refine` times per frame: S=1 online, S=6 in the
+//     bench's batch, S=10 in the debug forward.  Each pixel's map value
 //     needs only its cell's 3x3 homography and its own grid coordinate, so
 //     the maps are computed in registers (on the TPU, Mosaic's in-kernel
 //     reshape rule kept them out of the kernel).  One launch writes the
@@ -40,11 +41,11 @@
 // 73,728 B, frame read 2,764,800 B, frame write 2,764,800 B): 10.6 us,
 // 0.9 us and 1.7 us at 3.35 TB/s.  At these sizes the launch itself is of
 // the same order, so the design keeps one launch per call and no
-// intermediate in device memory.  All of them share one layout: a block
+// intermediate in device memory.  K1, K2 and K3 share one layout: a block
 // owns 8 output rows of image blockIdx.z, a warp one row of 128 pixels, 4
-// per thread (K2m: 32, one per thread), so no thread divides by a runtime
-// size and offsets within an image are 32-bit (the wrappers check that
-// they fit):
+// per thread, so no thread divides by a runtime size and offsets within an
+// image are 32-bit (the wrappers check that they fit).  K2m takes that
+// layout or one pixel per thread, by the size of its grid:
 //   * K2 was bound by the instructions it issued: one thread per pixel with
 //     a 64-bit division, 64-bit tap offsets and a loop over the channels
 //     with stride-C stores.  Now the channels are a template argument (1 to
@@ -55,7 +56,25 @@
 //     (W + H entries each) and its cell's homography through L1, and writes
 //     its four planes: nothing of the unfused chain (a (S, H, W, 3) product,
 //     the sign guard and divides, the mask's compares, a copy of the frame)
-//     reaches device memory, and 19 launches per refine pass become one;
+//     reaches device memory, and 19 launches per refine pass become one.
+//     At S=1 (576 blocks, under one wave) the launch and each pixel's chain
+//     of dependent loads bound it: the tables, then its cell's homography,
+//     then the frame's four taps.  An empty kernel at its grid takes about
+//     1.4-1.6 us of its ~3.0 (PERF.md, the K2m rows), and one pixel per
+//     thread in 8-row blocks (its first layout) keeps the most warps to hide
+//     the loads.  From S=4 up (more than two waves) bytes bound it: four
+//     pixels per thread in 4-row blocks (a smaller last wave than 8 rows),
+//     the tables read and the four planes written as 16-byte accesses, and
+//     each cell's homography and its products with gy loaded once per
+//     thread; at S=6 its time less the empty kernel's at its grid is within
+//     a tenth of the byte bound.  A strided frame (the channels-last stack
+//     of a refine pass and the debug forward, pixels 52 bytes apart) puts
+//     each tap in its own 32-byte sector, so its gathers bound it and it
+//     keeps one pixel per thread.  Tried, slower at every shape, and
+//     dropped (PERF.md, the K2m rows): each warp staging its image's
+//     homographies in shared memory beside the table loads (the L1 loads
+//     it replaced hit after an SM's first warp, so it only added a copy),
+//     two pixels per thread, and a register cap for more resident blocks;
 //   * K1 and K3 are in fact bound by the instructions they issue (about 200
 //     per pixel at C = 3), not by bytes.  So a block owns an 8 x 128 output
 //     tile, a thread 4 adjacent pixels of one row (12 bytes, written as three
@@ -101,8 +120,8 @@ namespace {
 
 // The output tile of K1, K2 and K3: one warp per output row, kPix
 // horizontally adjacent pixels per thread (kTileW = 32 * kPix columns),
-// kTileH rows; one grid layer (blockIdx.z) per image.  K2m: one pixel per
-// thread, 32 columns.
+// kTileH rows; one grid layer (blockIdx.z) per image.  K2m: 1 or 4 pixels
+// per thread (mesh_rows below).
 constexpr int kPix = 4;
 constexpr int kTileW = 32 * kPix;
 constexpr int kTileH = kThreads / 32;
@@ -189,6 +208,53 @@ bilinear_sample_kernel(const float* __restrict__ im, const float* __restrict__ x
   }
 }
 
+// The vector type of four 4-byte elements T (float or int).
+template <typename T> struct VecOf;
+template <> struct VecOf<float> { using type = float4; };
+template <> struct VecOf<int> { using type = int4; };
+
+// PIX consecutive elements of a row at element p0 into v, those past the
+// row's end (at n and beyond) as copies of the last one: one 4 * PIX byte
+// load where `vec` says they lie aligned inside the row.
+template <int PIX, typename T>
+__device__ __forceinline__ void load_run(const T* __restrict__ row, int p0, int n,
+                                         bool vec, T* v) {
+  static_assert(PIX == 1 || PIX == 4, "runs of 1 or 4");
+  if constexpr (PIX == 1) {
+    v[0] = __ldg(row + p0);
+  } else if (vec) {
+    const auto q = __ldg(reinterpret_cast<const typename VecOf<T>::type*>(row + p0));
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < PIX; ++k) v[k] = __ldg(row + p0 + min(k, n - 1));
+  }
+}
+
+// PIX floats of a row at element p0: one 4 * PIX byte store where `vec`
+// says they lie aligned inside the row, else the first n of them.
+template <int PIX>
+__device__ __forceinline__ void store_run(float* __restrict__ row, int p0, int n, bool vec,
+                                          const float* v) {
+  if constexpr (PIX == 1) {
+    row[p0] = v[0];
+  } else if (vec) {
+    *reinterpret_cast<float4*>(row + p0) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < PIX; ++k)
+      if (k < n) row[p0 + k] = v[k];
+  }
+}
+
+// K2m's rows per block at PIX pixels per thread: 8 rows of one pixel per
+// thread (its first layout), 4 of four, which leave a smaller tail of blocks
+// than 8 (PERF.md, the K2m layouts).
+__host__ __device__ constexpr int mesh_rows(int pix) { return pix == 1 ? 8 : 4; }
+
 // K2m: the serving warp of the current frame in one pass.  hs (B, gh, gw,
 // 3, 3) f32 per-cell homographies; im the (B, H, W, 1) f32 frame at element
 // strides (sb, sr, sc), read in place; the NDC grid's axes gx (W) and gy (H)
@@ -196,44 +262,78 @@ bilinear_sample_kernel(const float* __restrict__ im, const float* __restrict__ x
 // out (the strict sample), black, x and y, each (B, H, W).  Per pixel, with
 // the pixel's cell homography h: X = (h00 gx + h01 gy) + h02 (likewise Y, Z),
 // z = Z +/- 1e-8 by Z's sign, x = X / z, y = Y / z, black where (x, y)
-// leaves [-1, 1]^2, then K2's strict sample at (x, y).  One thread per
-// pixel, a warp per 32 columns of a row: at S=1 the 4-pixel layout of K2
-// leaves too few warps to hide the latency of the divides and the gathers.
-// The homographies are read through L1 (the lanes of a warp mostly share a
-// cell), not staged in shared memory: the staging's barrier cost more than
-// it saved (PERF.md, the K2m layouts).
-__global__ void __launch_bounds__(kThreads)
+// leaves [-1, 1]^2, then K2's strict sample at (x, y).
+//
+// A warp owns 32 * PIX columns of one row, a thread PIX adjacent pixels, a
+// block mesh_rows(PIX) rows; the wrapper picks PIX (csrc header, K2m).  The
+// homographies are read through L1: a thread loads its cell's nine values
+// and their three products with gy once for all of its pixels in that
+// cell.  `vec`: W % PIX == 0 and the tables and planes are aligned, so runs
+// of PIX are single loads and stores.
+template <int PIX>
+__global__ void __launch_bounds__(32 * mesh_rows(PIX))
 warp_mesh_kernel(const float* __restrict__ hs, const float* __restrict__ im,
                  long long sb, int sr, int sc,
                  const float* __restrict__ gx_t, const float* __restrict__ gy_t,
                  const int* __restrict__ cell_c, const int* __restrict__ cell_r,
                  float* __restrict__ out, float* __restrict__ black,
                  float* __restrict__ xo, float* __restrict__ yo,
-                 int H, int W, int ncells, int grid_w) {
-  const int o = blockIdx.y * kTileH + (threadIdx.x >> 5);
-  const int p = blockIdx.x * 32 + (threadIdx.x & 31);
+                 int H, int W, int ncells, int grid_w, int vec) {
+  const int o = blockIdx.y * mesh_rows(PIX) + (threadIdx.x >> 5);
+  const int p0 = blockIdx.x * (32 * PIX) + (threadIdx.x & 31) * PIX;
   const int b = blockIdx.z;
-  if (o >= H || p >= W) return;
-  const float* h =
-      hs + ((size_t)b * ncells + __ldg(cell_r + o) * grid_w + __ldg(cell_c + p)) * 9;
-  const float gx = __ldg(gx_t + p), gy = __ldg(gy_t + o);
-  float hh[9];
+  if (o >= H || p0 >= W) return;
+  const int n = min(PIX, W - p0);            // pixels of this thread inside the row
+  const bool run = vec && n == PIX;
+  const float gy = __ldg(gy_t + o);
+  const int cr = __ldg(cell_r + o) * grid_w;
+  float gx[PIX];
+  int cc[PIX];
+  load_run<PIX>(gx_t, p0, n, run, gx);
+  load_run<PIX>(cell_c, p0, n, run, cc);
+  const float* hb = hs + (size_t)b * ncells * 9;
+  const float* img = im + b * sb;
+  float v_out[PIX], v_black[PIX], v_x[PIX], v_y[PIX];
+  float hh[9], hy[3];
 #pragma unroll
-  for (int i = 0; i < 9; ++i) hh[i] = __ldg(h + i);
-  const float X = __fadd_rn(__fadd_rn(__fmul_rn(hh[0], gx), __fmul_rn(hh[1], gy)), hh[2]);
-  const float Y = __fadd_rn(__fadd_rn(__fmul_rn(hh[3], gx), __fmul_rn(hh[4], gy)), hh[5]);
-  const float Z = __fadd_rn(__fadd_rn(__fmul_rn(hh[6], gx), __fmul_rn(hh[7], gy)), hh[8]);
-  const float z = __fadd_rn(Z, Z >= 0.0f ? 1e-8f : -1e-8f);
-  const float x = __fdiv_rn(X, z);
-  const float y = __fdiv_rn(Y, z);
-  const stabnet::Taps32 t = stabnet::clamped_taps32(
-      ndc_to_pixel(x, W), ndc_to_pixel(y, H), H, W, (unsigned)sc, (unsigned)sr, true);
-  const size_t e = ((size_t)b * H + o) * W + p;
-  out[e] = stabnet::sample_taps32(im + b * sb, t, stabnet::tap_weights(t));
-  black[e] = (x < -1.0f || x > 1.0f || y < -1.0f || y > 1.0f) ? 1.0f : 0.0f;
-  xo[e] = x;
-  yo[e] = y;
+  for (int k = 0; k < PIX; ++k) {
+    if (k == 0 || cc[k] != cc[k - 1]) {      // a new cell: its homography
+      const float* h = hb + (cr + cc[k]) * 9;
+#pragma unroll
+      for (int i = 0; i < 9; ++i) hh[i] = __ldg(h + i);
+#pragma unroll
+      for (int r = 0; r < 3; ++r) hy[r] = __fmul_rn(hh[3 * r + 1], gy);
+    }
+    const float X = __fadd_rn(__fadd_rn(__fmul_rn(hh[0], gx[k]), hy[0]), hh[2]);
+    const float Y = __fadd_rn(__fadd_rn(__fmul_rn(hh[3], gx[k]), hy[1]), hh[5]);
+    const float Z = __fadd_rn(__fadd_rn(__fmul_rn(hh[6], gx[k]), hy[2]), hh[8]);
+    const float z = __fadd_rn(Z, Z >= 0.0f ? 1e-8f : -1e-8f);
+    const float x = __fdiv_rn(X, z);
+    const float y = __fdiv_rn(Y, z);
+    const stabnet::Taps32 t = stabnet::clamped_taps32(
+        ndc_to_pixel(x, W), ndc_to_pixel(y, H), H, W, (unsigned)sc, (unsigned)sr, true);
+    v_out[k] = stabnet::sample_taps32(img, t, stabnet::tap_weights(t));
+    v_black[k] = (x < -1.0f || x > 1.0f || y < -1.0f || y > 1.0f) ? 1.0f : 0.0f;
+    v_x[k] = x;
+    v_y[k] = y;
+  }
+  const size_t e = ((size_t)b * H + o) * W;
+  store_run<PIX>(out + e, p0, n, run, v_out);
+  store_run<PIX>(black + e, p0, n, run, v_black);
+  store_run<PIX>(xo + e, p0, n, run, v_x);
+  store_run<PIX>(yo + e, p0, n, run, v_y);
 }
+
+// K2m's grid: one block per mesh_rows(pix) rows and 32 * pix columns of an
+// image.
+dim3 mesh_grid(int B, int H, int W, int pix) {
+  const int rows = mesh_rows(pix);
+  return dim3((W + 32 * pix - 1) / (32 * pix), (H + rows - 1) / rows, B);
+}
+
+// An empty kernel, launched at K2m's grid: what any launch of that size
+// costs on the card, the floor under K2m's time at S=1.
+__global__ void empty_kernel() {}
 
 // Two-tap half-pixel up-sample of one low-res map at output pixel (o, p):
 // rows first, then columns, as resize_bilinear_bhw does.
@@ -460,18 +560,39 @@ extern "C" int stabnet_bilinear_sample_f32(const void* im, const void* xm,
   return (int)cudaGetLastError();
 }
 
+// K2m with `pix` pixels per thread, 1 or 4: the wrapper's choice
+// (ops/cuda_warp.py, `warp_mesh_pix`).
 extern "C" int stabnet_warp_mesh_f32(const void* hs, const void* im, long long sb,
                                      int sr, int sc, const void* gx, const void* gy,
                                      const void* cell_c, const void* cell_r,
                                      void* out, void* black, void* xo, void* yo,
                                      int B, int H, int W, int grid_h, int grid_w,
-                                     void* stream) {
+                                     int pix, void* stream) {
+  if (pix != 1 && pix != 4) return (int)cudaErrorInvalidValue;
   if ((long long)B * H * W == 0) return 0;
-  const dim3 grid((W + 31) / 32, (H + kTileH - 1) / kTileH, B);
-  warp_mesh_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)hs, (const float*)im, sb, sr, sc, (const float*)gx, (const float*)gy,
-      (const int*)cell_c, (const int*)cell_r, (float*)out, (float*)black, (float*)xo,
-      (float*)yo, H, W, grid_h * grid_w, grid_w);
+  const uintptr_t ptrs = (uintptr_t)gx | (uintptr_t)cell_c | (uintptr_t)out |
+                         (uintptr_t)black | (uintptr_t)xo | (uintptr_t)yo;
+  const int vec = W % pix == 0 && ptrs % (4 * pix) == 0;
+  const dim3 grid = mesh_grid(B, H, W, pix);
+#define STABNET_MESH(P)                                                               \
+  warp_mesh_kernel<P><<<grid, 32 * mesh_rows(P), 0, (cudaStream_t)stream>>>(          \
+      (const float*)hs, (const float*)im, sb, sr, sc, (const float*)gx,               \
+      (const float*)gy, (const int*)cell_c, (const int*)cell_r, (float*)out,          \
+      (float*)black, (float*)xo, (float*)yo, H, W, grid_h * grid_w, grid_w, vec)
+  if (pix == 1) {
+    STABNET_MESH(1);
+  } else {
+    STABNET_MESH(4);
+  }
+#undef STABNET_MESH
+  return (int)cudaGetLastError();
+}
+
+// The empty kernel at K2m's grid for (B, H, W) frames at `pix` pixels per
+// thread: the launch floor that chip_smoke times beside K2m.
+extern "C" int stabnet_empty_launch(int B, int H, int W, int pix, void* stream) {
+  if (pix != 1 && pix != 4) return (int)cudaErrorInvalidValue;
+  empty_kernel<<<mesh_grid(B, H, W, pix), 32 * mesh_rows(pix), 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 

@@ -64,8 +64,10 @@ def _warp_lib() -> ctypes.CDLL:
         lib.stabnet_warp_uint8_cf.argtypes = [_P] * 4 + [_I] * 6 + [_P]
         lib.stabnet_warp_uint8_cf.restype = _I
         lib.stabnet_warp_mesh_f32.argtypes = ([_P] * 2 + [ctypes.c_longlong] + [_I] * 2
-                                              + [_P] * 8 + [_I] * 5 + [_P])
+                                              + [_P] * 8 + [_I] * 6 + [_P])
         lib.stabnet_warp_mesh_f32.restype = _I
+        lib.stabnet_empty_launch.argtypes = [_I] * 4 + [_P]
+        lib.stabnet_empty_launch.restype = _I
         lib._stabnet_typed = True
     return lib
 
@@ -304,19 +306,28 @@ def _warp_mesh_op(im, Hs, gx, gy, cell_col, cell_row):
     return warp_mesh_plain(im, Hs, (gx, gy, cell_col, cell_row))
 
 
-@_warp_mesh_op.register_kernel("cuda")
-def _warp_mesh_cuda(im, Hs, gx, gy, cell_col, cell_row):
-    _on_card(im, Hs, gx, gy, cell_col, cell_row)
+_ONE_PIX_MAX = 2 * 132 * 2048   # pixels in about two waves at one per thread
+
+
+def warp_mesh_pix(B: int, H: int, W: int, col_stride: int) -> int:
+    """Pixels per thread of K2m (csrc/warp.cu, `warp_mesh_kernel`) for B
+    frames of H x W whose pixels lie `col_stride` elements apart.  One (8
+    rows per block) where the grid fills the card in about two waves or less,
+    since the latency of each pixel's chain of loads bounds it there, or where
+    the frame's pixels are strided, since its tap gathers bound it then.
+    Otherwise four (4 rows per block), whose 16-byte loads and stores issue
+    fewer instructions per pixel, since the bytes bound it there.  A frame
+    one pixel wide has no column stride to speak of."""
+    strided = W > 1 and col_stride != 1
+    return 1 if B * H * W <= _ONE_PIX_MAX or strided else 4
+
+
+def _launch_warp_mesh(im, Hs, tables, pix: int):
+    """Allocate K2m's four planes and launch it at `pix` pixels per thread on
+    the current stream (the op's CUDA implementation;
+    scripts/warp_mesh_layouts.py times each layout)."""
+    gx, gy, cell_col, cell_row = tables
     B, H, W, _ = im.shape
-    grid_h, grid_w = Hs.shape[1], Hs.shape[2]
-    _require(im.dtype == torch.float32 and Hs.dtype == torch.float32,
-             f"warp_mesh: frames and homographies must be float32, got {im.dtype}, "
-             f"{Hs.dtype}")
-    _require(Hs.is_contiguous(), "warp_mesh: homographies must be contiguous")
-    for t, n, dtype in ((gx, W, torch.float32), (gy, H, torch.float32),
-                        (cell_col, W, torch.int32), (cell_row, H, torch.int32)):
-        _require(tuple(t.shape) == (n,) and t.dtype == dtype and t.is_contiguous(),
-                 f"warp_mesh: bad table {tuple(t.shape)} {t.dtype} for {H} x {W} frames")
     dev = im.device
     # A side of one pixel never moves an offset: its stride may be anything.
     strides = [im.stride(d) if im.shape[d] > 1 else 0 for d in (1, 2)]
@@ -329,10 +340,27 @@ def _warp_mesh_cuda(im, Hs, gx, gy, cell_col, cell_row):
             Hs.data_ptr(), im.data_ptr(), im.stride(0), *strides,
             gx.data_ptr(), gy.data_ptr(), cell_col.data_ptr(), cell_row.data_ptr(),
             out.data_ptr(), black.data_ptr(), x_map.data_ptr(), y_map.data_ptr(),
-            B, H, W, grid_h, grid_w, stream)
+            B, H, W, Hs.shape[1], Hs.shape[2], pix, stream)
     _launch_check(err, "warp_mesh")
-    warp_mesh.launches += 1
     return out, black, x_map, y_map
+
+
+@_warp_mesh_op.register_kernel("cuda")
+def _warp_mesh_cuda(im, Hs, gx, gy, cell_col, cell_row):
+    _on_card(im, Hs, gx, gy, cell_col, cell_row)
+    B, H, W, _ = im.shape
+    _require(im.dtype == torch.float32 and Hs.dtype == torch.float32,
+             f"warp_mesh: frames and homographies must be float32, got {im.dtype}, "
+             f"{Hs.dtype}")
+    _require(Hs.is_contiguous(), "warp_mesh: homographies must be contiguous")
+    for t, n, dtype in ((gx, W, torch.float32), (gy, H, torch.float32),
+                        (cell_col, W, torch.int32), (cell_row, H, torch.int32)):
+        _require(tuple(t.shape) == (n,) and t.dtype == dtype and t.is_contiguous(),
+                 f"warp_mesh: bad table {tuple(t.shape)} {t.dtype} for {H} x {W} frames")
+    res = _launch_warp_mesh(im, Hs, (gx, gy, cell_col, cell_row),
+                            warp_mesh_pix(B, H, W, im.stride(2)))
+    warp_mesh.launches += 1
+    return res
 
 
 @_warp_mesh_op.register_fake
@@ -369,6 +397,16 @@ def warp_mesh(im: torch.Tensor, Hs: torch.Tensor, tables
 
 
 warp_mesh.launches = 0
+
+
+def empty_launch(B: int, H: int, W: int, pix: int, device: torch.device) -> None:
+    """Launch an empty kernel at K2m's grid for B frames of H x W at `pix`
+    pixels per thread, on the current stream: the floor under K2m's time
+    that any launch of that size pays (chip_smoke times it beside K2m).  Not
+    a kernel of any path, and not counted."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        _launch_check(_warp_lib().stabnet_empty_launch(B, H, W, pix, stream), "empty_launch")
 
 
 # --- K1 and K3: the uint8 color warp ------------------------------------------

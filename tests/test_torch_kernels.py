@@ -421,6 +421,17 @@ def test_kernels_match_plain_on_the_card():
             assert cuda_warp.warp_mesh.launches == before + 1
             want = cuda_warp.warp_mesh_plain(frame, Hs, mesh_tables(H, W, 4, 4, dev))
             assert all(torch.equal(a, b) for a, b in zip(got, want))
+    # K2m at four pixels per thread (a batch past two waves of the card),
+    # with a right edge inside a warp's 128 columns, on an 8 x 8 mesh.
+    B, H, W = 8, 96, 720
+    assert cuda_warp.warp_mesh_pix(B, H, W, 1) == 4
+    mesh = torch.from_numpy(base_mesh(8, 8))
+    mesh = (mesh + 0.05 * torch.randn((B, 9, 9, 2), generator=gen)).to(dev)
+    Hs = mesh_to_homographies(mesh, 8, 8)
+    frame = torch.rand((B, 13, H, W), generator=gen).to(dev).permute(0, 2, 3, 1)[..., 12:13]
+    got = cuda_warp.warp_mesh(frame, Hs, mesh_tables(H, W, 8, 8, dev))
+    want = cuda_warp.warp_mesh_plain(frame, Hs, mesh_tables(H, W, 8, 8, dev))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
     imc = torch.randint(0, 256, (2, 3, 181, 243), generator=gen,
                         dtype=torch.uint8).to(dev)
     xs = resize_bilinear_bhw(x, (18, 34)).contiguous()

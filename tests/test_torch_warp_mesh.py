@@ -28,8 +28,11 @@ torch.set_num_threads(1)
 CPU = torch.device("cpu")
 
 
-def _mesh(rng, B, zoom=1.0, spread=0.08):
-    m = base_mesh(4, 4) * zoom + rng.uniform(-spread, spread, (B, 5, 5, 2))
+def _mesh(rng, B, zoom=1.0, spread=0.08, grid=4):
+    """A (B, grid + 1, grid + 1, 2) mesh, its vertices moved by up to
+    spread * 4 / grid (the same share of a cell at any grid)."""
+    s = spread * 4 / grid
+    m = base_mesh(grid, grid) * zoom + rng.uniform(-s, s, (B, grid + 1, grid + 1, 2))
     return m.astype(np.float32)
 
 
@@ -45,32 +48,34 @@ def _smooth_image(rng, B, H, W):
     return np.stack(out)[..., None].astype(np.float32)
 
 
-CASES = {
-    "tiny 48x64": ((48, 64), 1.0),
-    "ragged 50x66": ((50, 66), 1.0),
-    "zoomed out, samples out of frame": ((48, 64), 1.2),
+CASES = {   # frame size, mesh zoom, mesh cells per side
+    "tiny 48x64": ((48, 64), 1.0, 4),
+    "ragged 50x66": ((50, 66), 1.0, 4),
+    "zoomed out, samples out of frame": ((48, 64), 1.2, 4),
+    "8x8 mesh": ((48, 64), 1.0, 8),
+    "ragged 40x150, cells of 37 and 39 columns": ((40, 150), 1.0, 4),
 }
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_warp_mesh_matches_jax(case):
-    (H, W), zoom = CASES[case]
+    (H, W), zoom, g = CASES[case]
     rng = np.random.RandomState(7)
     B = 2
-    mesh = _mesh(rng, B, zoom)
+    mesh = _mesh(rng, B, zoom, grid=g)
     im = _smooth_image(rng, B, H, W)
 
-    Hs_j = jhom.mesh_to_homographies(jnp.asarray(mesh), 4, 4)
+    Hs_j = jhom.mesh_to_homographies(jnp.asarray(mesh), g, g)
     jx, jy = jwarp.dense_maps(Hs_j, H, W)
     jblack = np.asarray(jwarp.black_mask(jx, jy))
     jout = np.asarray(pallas_warp.bilinear_sample_pallas(
         jnp.asarray(im), jx, jy, y_band=32, x_band=128, interpret=True, exact=True))
     jx, jy = np.asarray(jx), np.asarray(jy)
 
-    Hs_t = thom.mesh_to_homographies(torch.from_numpy(mesh), 4, 4)
+    Hs_t = thom.mesh_to_homographies(torch.from_numpy(mesh), g, g)
     before = cuda_warp.warp_mesh.launches
     out, black, x, y = cuda_warp.warp_mesh(torch.from_numpy(im), Hs_t,
-                                           twarp.mesh_tables(H, W, 4, 4, CPU))
+                                           twarp.mesh_tables(H, W, g, g, CPU))
     assert cuda_warp.warp_mesh.launches == before      # CPU: the plain version
     assert out.shape == (B, H, W, 1) and black.shape == x.shape == y.shape == (B, H, W)
     np.testing.assert_allclose(x.numpy(), jx, rtol=0, atol=1e-5)
@@ -85,7 +90,7 @@ def test_warp_mesh_matches_jax(case):
         assert share < 0.2
 
     # `transformer` is this one call.
-    res = twarp.transformer(torch.from_numpy(im), torch.from_numpy(mesh), 4, 4)
+    res = twarp.transformer(torch.from_numpy(im), torch.from_numpy(mesh), g, g)
     for got, want in zip((res.output, res.black_pix, res.x_map, res.y_map),
                          (out, black, x, y)):
         assert torch.equal(got, want)
@@ -115,6 +120,31 @@ def test_warp_mesh_reads_the_frame_in_place():
     for serve, train in ((x, dx), (y, dy)):
         keep = train.abs() <= 1.5
         assert float((serve - train)[keep].abs().max()) <= 1e-6
+
+
+# (B, H, W, column stride of the frame) -> K2m's pixels per thread.
+LAYOUTS = {
+    "online S=1, one pixel per thread": ((1, 288, 512, 1), 1),
+    "chip_smoke's S=2 refine stack, one": ((2, 288, 512, 13), 1),
+    "S=2 planes, about one wave: one": ((2, 288, 512, 1), 1),
+    "serving clip S=4, four": ((4, 288, 512, 1), 4),
+    "bench batch S=6, four": ((6, 288, 512, 1), 4),
+    "bench batch S=6 ragged 289x515, four": ((6, 289, 515, 1), 4),
+    "ragged S=1 289x515, one": ((1, 289, 515, 1), 1),
+    "debug forward S=10 channels last, one": ((10, 288, 512, 13), 1),
+    "a one-pixel-wide frame, four": ((4000, 288, 1, 13), 4),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LAYOUTS))
+def test_warp_mesh_layout_at_the_path_shapes(case):
+    """The wrapper's choice of K2m's layout, a pure function of the batch,
+    the frame size and the frame's column stride (csrc/warp.cu, K2m): one
+    pixel per thread where the grid is at most about two waves of the
+    card or the frame is strided, else four.  The mesh does not enter it,
+    so an 8 x 8 mesh runs the layout a 4 x 4 one does."""
+    (B, H, W, col_stride), pix = LAYOUTS[case]
+    assert cuda_warp.warp_mesh_pix(B, H, W, col_stride) == pix
 
 
 REFUSED_MESHES = {
