@@ -88,7 +88,14 @@ nonzero exit):
      live one (bit for bit, K1 and K2m once per frame), the 4-clip batch on
      the segment against the live batch chunked by 4 (bit for bit), export
      and load seconds, artifact bytes, "net" p50/p90 of each engine in
-     turns, and the device operations per frame of each;
+     turns, and the device operations per frame of each; then `export
+     --platforms` through the CLI with --selftest, traced on the card for
+     cuda and cpu and traced on the CPU for cpu and cuda: the header lists
+     both programs, neither CUDA program's graph holds a cuDNN-, MKLDNN- or
+     CUDA-specific operation, and each program serves on its own device bit
+     for bit as the live engine there (each CUDA program the 40-frame clip
+     with K1 and K2m once per frame, each CPU program 4 frames with no
+     kernel launched);
  17. data parallel: `train --data-parallel` through the CLI on phase 8's
      shards for 2 steps in rank processes of this script: (a) one NCCL rank
      under torch.distributed.run against the plain run, v2_93 bf16 batch
@@ -122,9 +129,22 @@ nonzero exit):
      name and power limit on the stats line; the launches each leg adds to
      the stats line's counts: K1 and K2m once per step of each run (warm-up
      and repeats), no other kernel;
+ 22. quality gate: scripts/torch_quality_gate.py at --steps 200 --clips 4
+     --frames 40 in a process of its own (`chip_smoke.py _gate ARGS`, which
+     counts the launches around its training, each served batch and each
+     scored clip): exit 0 or 1 as its report says (a pass is not required
+     at that schedule), every check of the JAX gate present, and the
+     launches: per training step K2 2, K4 1, K6b 1; per served frame K1 and
+     K2m once; per scored clip 20 K2 per tvl1_flow call and nothing else;
+ 23. endurance: scripts/torch_endurance.py at v2_93 (target 4, segments of
+     2 in fresh processes, the second through --restore, one 20-frame clip
+     scored after each): its verdict record and scores.jsonl;
 and in phase 12 the card-against-CPU gap of fit_homographies split by
-cause (its normal equations summed in float64 on both devices).
-`python3 chip_smoke.py _dp_rank MODE ARGS...` is phase 17's rank process.
+cause (its normal equations summed in float64 on both devices).  Each
+phase prints its seconds ("[N seconds]"), and a line before the kernels
+line sums them.
+`python3 chip_smoke.py _dp_rank MODE ARGS...` is phase 17's rank process,
+`python3 chip_smoke.py _gate ARGS...` phase 22's.
 The line before the last is a JSON object with every kernel's numbers; the
 last line is {"ok": true, "device": {...}}.  Needs CUDA and the repository
 beside it; imports nothing of JAX.
@@ -1835,9 +1855,10 @@ def phase_export(card: str, dev, engine, clips: np.ndarray):
     t2 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "v2_93.stbx")
-        save_artifact(path, step1, cfg, CLIP_HW, 1, engine.refine, dev)
+        save_artifact(path, {"cuda": (step1, None)}, cfg, CLIP_HW, 1, engine.refine)
         blob, meta = load_artifact(path)
-    check(blob == step1 and meta["format"] == "torch.export" and meta["device"] == "cuda",
+    check(blob == step1 and meta["format"] == "torch.export" and meta["platforms"] == ["cuda"]
+          and meta["programs"] == {"cuda": {"step": [0, len(step1)]}},
           f"artifact header {meta}")
     t3 = time.perf_counter()
     served = ExportedEngine(blob, cfg, CLIP_HW, streams=1, device=dev)
@@ -1893,6 +1914,87 @@ def phase_export(card: str, dev, engine, clips: np.ndarray):
               f"{o:.1f}/frame" for n, (w, b, o) in ops.items()))
     del served, served4
     return runs["exported"][0][1], batch_launches
+
+
+def serve_clip(engine, clip: np.ndarray):
+    """One clip through StreamDriver on `engine`, with the launches it made."""
+    from stabnet_tpu_torch.ops import cuda_warp
+    from stabnet_tpu_torch.stream import DeployOptions, StreamDriver
+
+    cuda_warp.reset_launch_counts()
+    res = StreamDriver(engine, DeployOptions()).stabilize_clip(clip)
+    torch.cuda.synchronize()
+    return res, launch_counts()
+
+
+def phase_export_platforms(card: str, dev, engine, clips: np.ndarray, tmp: str):
+    """`export --platforms` through the CLI with the weights phase 4's
+    engine holds (the CLI's seeded random weights): traced on the card for
+    cuda and cpu, and traced on the CPU for cpu and cuda (the counterpart of
+    a JAX CPU host exporting for the accelerator).  Each program serves on
+    its own device bit for bit as the live engine there: each CUDA program
+    phase 4's clip with K1 and K2m once per frame, each CPU program the
+    clip's first frames with no kernel launched.  Returns the launches of
+    the CPU-traced CUDA program's clip."""
+    from stabnet_tpu_torch.cli.main import main as cli
+    from stabnet_tpu_torch.stream import StreamEngine
+    from stabnet_tpu_torch.stream.export import (ExportedEngine, _load_program,
+                                                 load_artifact, select_program)
+
+    cfg, T, T_CPU = engine.cfg, clips.shape[1], 4
+    zero = {k: 0 for k in launch_counts()}
+    want = zero | {"warp_mesh": T - 1, "warp_uint8_cf_lowres": T - 1}
+    live, live_launches = serve_clip(engine, clips[0])
+    check(live_launches == want, f"live launches {live_launches}")
+    cpu_engine = StreamEngine(random_model(cfg, 0), cfg, refine=engine.refine, device="cpu")
+    cpu_live, _ = serve_clip(cpu_engine, clips[0, :T_CPU])
+
+    def same(a, b, what):
+        check(np.array_equal(a.frames, b.frames) and np.array_equal(a.all_black, b.all_black)
+              and a.crop_rect == b.crop_rect, f"{what}: not bit for bit")
+
+    notes, moved_launches = [], None
+    for traced, platforms in (("cuda", ["cuda", "cpu"]), ("cpu", ["cpu", "cuda"])):
+        path = os.path.join(tmp, f"traced_{traced}.stbx")
+        t0 = time.perf_counter()
+        cli(["export", "--config", cfg.name, "--out", path, "--output-size",
+             *map(str, CLIP_HW), "--device", traced, "--platforms", *platforms,
+             "--selftest"])
+        wall = time.perf_counter() - t0
+        blob, meta = load_artifact(path)
+        spans = [tuple(meta["programs"][p]["step"]) for p in platforms]
+        check(meta["platforms"] == platforms and list(meta["programs"]) == platforms
+              and spans[0][0] == 0 and spans[1][0] == spans[0][1]
+              and sum(n for _, n in spans) == len(blob), f"traced on {traced}: header {meta}")
+        targets = [str(n.target) for n in _load_program(select_program(blob, meta, "cuda")[0])
+                   .graph.nodes if n.op == "call_function"]
+        check(targets.count("stabnet.warp_mesh.default") == 1
+              and targets.count("stabnet.warp_uint8_cf_lowres.default") == 1,
+              f"traced on {traced}: the CUDA program's kernels {targets}")
+        specific = sorted({t for t in targets
+                           if any(k in t for k in ("cudnn", "miopen", "mkldnn", "_cuda"))})
+        check(not specific, f"traced on {traced}: device-specific operations {specific}")
+        runs = {}
+        for device, clip, ref in (("cuda", clips[0], live), ("cpu", clips[0, :T_CPU], cpu_live)):
+            served = ExportedEngine.from_artifact(blob, meta, device=device)
+            res, launches = serve_clip(served, clip)
+            same(res, ref, f"traced on {traced}, the {device} program")
+            check(launches == (want if device == "cuda" else zero),
+                  f"traced on {traced}, the {device} program: launches {launches}")
+            runs[device] = launches
+            del served
+        if traced == "cpu":
+            moved_launches = runs["cuda"]
+        notes.append(f"traced on {traced} for {' '.join(platforms)}: {wall:.2f} s through the "
+                     f"CLI with --selftest, {os.path.getsize(path)} B, programs "
+                     f"{dict(zip(platforms, [n for _, n in spans]))} B; the cuda program's "
+                     f"{T}-frame clip bit for bit the live card engine, launches "
+                     f"{runs['cuda']}; the cpu program's {T_CPU}-frame clip bit for bit the "
+                     f"live CPU engine, launches {runs['cpu']}")
+    print(f"[16 platforms] {card} | {cfg.name} {cfg.compute_dtype} {CLIP_HW[0]}p, "
+          f"`export --platforms`, no cuDNN-, MKLDNN- or CUDA-specific operation in either "
+          f"CUDA program's graph: " + "; ".join(notes))
+    return moved_launches
 
 
 DP_RANK = "_dp_rank"   # argv[1] of a rank process that phase 17 starts
@@ -2295,50 +2397,196 @@ def phase_bench(card: str):
     return before
 
 
+# --- the quality gate and the endurance run --------------------------------
+
+GATE = "_gate"   # argv[1] of the quality gate's process that phase 22 starts
+GATE_ARGS = ["--steps", "200", "--clips", "4", "--frames", "40"]
+
+
+def gate_process(argv) -> int:
+    """Phase 22's process: scripts/torch_quality_gate.py's `main` with
+    `argv`, the launches of its training, of each batch it serves and of
+    each clip it scores counted around those calls, printed as a JSON line
+    on stderr after the report."""
+    import importlib.util
+
+    import stabnet_tpu_torch.eval as evaluation
+    from stabnet_tpu_torch.stream import StreamDriver
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "torch_quality_gate", os.path.join(here, "scripts", "torch_quality_gate.py"))
+    gate = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gate)
+    record = {}
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            before = launch_counts()
+            out = fn(*args, **kwargs)
+            after = launch_counts()
+            record.setdefault(name, []).append({k: after[k] - before[k] for k in after})
+            return out
+        return call
+
+    gate.train_model = counted("train", gate.train_model)
+    StreamDriver.stabilize_batch = counted("serve", StreamDriver.stabilize_batch)
+    evaluation.score_stabilized_clip = counted("score", evaluation.score_stabilized_clip)
+    rc = gate.main(argv)
+    print("GATE_LAUNCHES " + json.dumps(record), file=sys.stderr, flush=True)
+    return rc
+
+
+def phase_quality_gate(card: str, tmp: str):
+    """scripts/torch_quality_gate.py at a short schedule in a process of its
+    own: exit 0 or 1 as its report says (a pass is not required at 200
+    steps), every check of the JAX gate present, and the launches: per
+    training step K2 2, K4 1 and K6b 1; per served frame K2m and K1 once
+    (each of the two batches: trained and random weights); per scored clip
+    20 K2 in each tvl1_flow call, nothing else.  Returns the whole run's
+    launches."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, os.path.abspath(__file__), GATE, *GATE_ARGS,
+           "--workdir", os.path.join(tmp, "gate")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900, cwd=here)
+    wall = time.perf_counter() - t0
+    check(proc.returncode in (0, 1), f"quality gate exit {proc.returncode}:\n"
+          f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    checks = ("stabilizes_vs_input", "beats_random_majority", "beats_random_margin",
+              "cropping_sane", "distortion_sane", "per_clip_distortion_floor")
+    check(list(report["checks"]) == list(checks)
+          and proc.returncode == (0 if report["pass"] else 1)
+          and report["pass"] == all(report["checks"].values()),
+          f"quality gate report {report}")
+    record = json.loads([ln for ln in proc.stderr.splitlines()
+                         if ln.startswith("GATE_LAUNCHES ")][-1][len("GATE_LAUNCHES "):])
+    steps, clips, T = (int(GATE_ARGS[i]) for i in (1, 3, 5))
+    zero = {k: 0 for k in launch_counts()}
+    want = {"train": [zero | {"bilinear_sample": 2 * steps, "bilinear_splat": steps,
+                              "sample_map_grad": steps}],
+            "serve": [zero | {"warp_mesh": T - 1, "warp_uint8_cf_lowres": T - 1}] * 2,
+            # tvl1_flow calls per clip: the output's and the input's
+            # inter-frame pairs and the input-to-output pairs, 32 per call.
+            "score": [zero | {"bilinear_sample": 20 * (2 * -(-(T - 1) // 32) + -(-T // 32))}]
+            * (2 * clips)}
+    check(record == want, f"quality gate launches {record}, expected {want}")
+    seconds = [ln for ln in proc.stderr.splitlines() if ln.startswith("quality gate on")]
+    total = {k: sum(r[k] for part in record.values() for r in part) for k in zero}
+    print(f"[22 quality gate] {card} | scripts/torch_quality_gate.py {' '.join(GATE_ARGS)} in "
+          f"its own process, {wall:.1f} s, exit {proc.returncode}: pass {report['pass']}, "
+          f"checks {report['checks']}, mean stability trained "
+          f"{report['mean_stability_trained']:.4f} / input "
+          f"{report['mean_stability_input']:.4f} / random "
+          f"{report['mean_stability_random']:.4f}, wins {report['wins_vs_random']} of "
+          f"{clips}, min distortion {report['min_distortion_trained']:.4f}, final loss "
+          f"{report['final_train_loss']:.5f}; launches: training {record['train'][0]}, each "
+          f"served batch of {clips} x {T} frames {record['serve'][0]}, each scored clip "
+          f"{record['score'][0]} | {seconds[-1] if seconds else ''}")
+    return total
+
+
+ENDURANCE_ARGS = ["--config", "v2_93", "--target", "4", "--segment", "2", "--score-every",
+                  "2", "--clips", "1", "--frames", "20", "--examples", "20"]
+
+
+def phase_endurance(card: str, tmp: str):
+    """scripts/torch_endurance.py at v2_93 over the port's CLI: two training
+    segments of 2 steps (the second through --restore), scored after each on
+    one 20-frame clip; its verdict record and scores.jsonl."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(tmp, "endurance")
+    cmd = [sys.executable, os.path.join(here, "scripts", "torch_endurance.py"),
+           *ENDURANCE_ARGS, "--workdir", work]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900, cwd=here)
+    wall = time.perf_counter() - t0
+    log = os.path.join(work, "endurance.log")
+    tail = open(log).read()[-4000:] if os.path.exists(log) else ""
+    check(proc.returncode in (0, 1), f"endurance exit {proc.returncode}:\n"
+          f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}\n{tail}")
+    verdict = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(list(verdict["checks"]) == ["trend_up", "beats_input_at_end",
+                                      "no_post_decay_regression", "distortion_floor"]
+          and [r["iter"] for r in verdict["scores"]] == [2, 4]
+          and proc.returncode == (0 if verdict["pass"] else 1),
+          f"endurance verdict {verdict}")
+    with open(os.path.join(work, "scores.jsonl")) as f:
+        records = [json.loads(ln) for ln in f]
+    check([r["iter"] for r in records] == [2, 4]
+          and all(0 < r["mean_stability"] <= 1 + 1e-6 for r in records),
+          f"endurance scores {records}")
+    segments = [ln for ln in proc.stdout.splitlines() if " steps in " in ln]
+    print(f"[23 endurance] {card} | scripts/torch_endurance.py {' '.join(ENDURANCE_ARGS)}, "
+          f"{wall:.1f} s: verdict {json.dumps(verdict)}; {'; '.join(segments)}")
+
+
+def timed(number: int, fn, *args):
+    """`fn(*args)`, its seconds printed as phase `number`'s."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    seconds = time.perf_counter() - t0
+    SECONDS[number] = SECONDS.get(number, 0.0) + seconds
+    print(f"[{number} seconds] {seconds:.1f}", flush=True)
+    return out
+
+
+SECONDS = {}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     if len(sys.argv) > 1 and sys.argv[1] == DP_RANK:
         return dp_rank(sys.argv[2], sys.argv[3:])
+    if len(sys.argv) > 1 and sys.argv[1] == GATE:
+        return gate_process(sys.argv[2:])
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
-    card = phase_device()
-    errs = {**phase_k2(gen, dev), **phase_k1(gen, dev)}
+    card = timed(1, phase_device)
+    errs = {**timed(2, phase_k2, gen, dev), **timed(3, phase_k1, gen, dev)}
     clips = make_clips(4, T_CLIP, CLIP_HW)
-    engine, driver, grays, launches = phase_path(clips, dev)
-    phase_card_vs_cpu(clips, dev)
-    kernels, timed = phase_times(card, gen, dev, engine, driver, clips, grays,
-                                 launches, errs)
-    flow_err, flow_timed, flow_launches = phase_flow(card, gen, dev, clips)
+    engine, driver, grays, launches = timed(4, phase_path, clips, dev)
+    timed(5, phase_card_vs_cpu, clips, dev)
+    kernels, timed_ms = timed(6, phase_times, card, gen, dev, engine, driver, clips, grays,
+                              launches, errs)
+    flow_err, flow_timed, flow_launches = timed(11, phase_flow, card, gen, dev, clips)
     errs["bilinear_sample"] = max(errs["bilinear_sample"], flow_err)
-    timed[("bilinear_sample", "(10, 288, 512, 3) edge-inclusive")] = flow_timed
-    phase_metrics(card, dev, engine, clips)
-    batch_launches = phase_serving_modes(card, dev, engine, clips)
-    export_launches, export_batch_launches = phase_export(card, dev, engine, clips)
-    sharded_launches = phase_sharded(card, dev, engine, clips)
-    del engine, driver
-    errs.update(phase_grad_kernels(gen, dev))
+    timed_ms[("bilinear_sample", "(10, 288, 512, 3) edge-inclusive")] = flow_timed
+    timed(12, phase_metrics, card, dev, engine, clips)
+    batch_launches = timed(14, phase_serving_modes, card, dev, engine, clips)
+    export_launches, export_batch_launches = timed(16, phase_export, card, dev, engine, clips)
     with tempfile.TemporaryDirectory() as tmp:
-        train_launches, data = phase_train_path(tmp)
-        phase_train_card_vs_cpu(dev)
-        train_timed, flowless_iter_ms = phase_train_times(card, gen, dev, data)
-        timed.update(train_timed)
-        phase_flow_train(card, tmp, data, flowless_iter_ms)
-        phase_weights_in(card, dev, clips, tmp, data)
-        dp_launches = phase_data_parallel(card, dev, tmp, data)
-        doctor_launches = phase_doctor(card)
-        vis_launches = phase_debug_vis(card, tmp, data)
-    bench_launches = phase_bench(card)
+        moved_launches = timed(16, phase_export_platforms, card, dev, engine, clips, tmp)
+    sharded_launches = timed(18, phase_sharded, card, dev, engine, clips)
+    del engine, driver
+    errs.update(timed(7, phase_grad_kernels, gen, dev))
+    with tempfile.TemporaryDirectory() as tmp:
+        train_launches, data = timed(8, phase_train_path, tmp)
+        timed(9, phase_train_card_vs_cpu, dev)
+        train_timed, flowless_iter_ms = timed(10, phase_train_times, card, gen, dev, data)
+        timed_ms.update(train_timed)
+        timed(13, phase_flow_train, card, tmp, data, flowless_iter_ms)
+        timed(15, phase_weights_in, card, dev, clips, tmp, data)
+        dp_launches = timed(17, phase_data_parallel, card, dev, tmp, data)
+        doctor_launches = timed(19, phase_doctor, card)
+        vis_launches = timed(20, phase_debug_vis, card, tmp, data)
+    bench_launches = timed(21, phase_bench, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        gate_launches = timed(22, phase_quality_gate, card, tmp)
+        timed(23, phase_endurance, card, tmp)
     # K2, K4 and K6b run on the training path: their launches are a
     # segment's, at the shapes of the K6 forward and of the backwards.
     kernels.insert(0, kernel_row("bilinear_sample", "stabnet_tpu/ops/pallas_warp.py:469",
                                  train_launches["bilinear_sample"], errs["bilinear_sample"],
-                                 timed, "(20, 288, 512, 1)"))
+                                 timed_ms, "(20, 288, 512, 1)"))
     for name, label, replaces in (
             ("bilinear_splat", "(10, 288, 512, 2)", "stabnet_tpu/ops/pallas_warp.py:738"),
             ("sample_map_grad", "(20, 288, 512, 1)", "stabnet_tpu/ops/pallas_warp.py:946")):
-        kernels.append(kernel_row(name, replaces, train_launches[name], errs[name], timed,
+        kernels.append(kernel_row(name, replaces, train_launches[name], errs[name], timed_ms,
                                   label, source="warp_grad.cu"))
     for row in kernels:
         row["launches_serving"] = launches[row["name"]]
@@ -2352,6 +2600,10 @@ def main() -> int:
         row["launches_doctor"] = doctor_launches[row["name"]]
         row["launches_debug_vis"] = vis_launches[row["name"]]
         row["launches_bench"] = bench_launches[row["name"]]
+        row["launches_export_moved"] = moved_launches[row["name"]]
+        row["launches_quality_gate"] = gate_launches[row["name"]]
+    print(f"[seconds] all phases {time.perf_counter() - t_start:.1f}, by phase "
+          + json.dumps({k: round(v, 1) for k, v in sorted(SECONDS.items())}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,7 @@ Usage:
   python -m stabnet_tpu_torch.cli.main export --out ARTIFACT --config v2_93 \
       [--model-dir DIR | --tf-checkpoint CKPT | --weights NPZ] [--streams S] \
       [--refine N] [--segment K] [--output-size H W] [--device cuda|cpu] \
-      [--selftest]
+      [--platforms cuda cpu] [--selftest]
   python -m stabnet_tpu_torch.cli.main make-synthetic --out data/train \
       --num 256 [--config tiny] [--seed 0]
   python -m stabnet_tpu_torch.cli.main train --config v2_93 --data data/ \
@@ -64,9 +64,10 @@ BatchNorm's statistics and the gradients reduced over the ranks (NCCL
 where each rank has a card of its own, gloo where ranks share a card and on
 the CPU).  `stabilize --batch S --batch-sharded` splits the S clips over every
 local card, one model replica each.  `export` writes the serving step, its
-weights baked in, as a `torch.export` artifact for the device it was traced
-on (with `--segment K` also K steps unrolled); `stabilize --from-export`
-serves from it.
+weights baked in, as a `torch.export` artifact (with `--segment K` also K
+steps unrolled), traced on `--device` and made for each device type of
+`--platforms`; `stabilize --from-export` serves the program for its
+`--device` and refuses an artifact that lists none.
 
 `make-dataset` builds shards from stable/unstable video pairs (ORB matches
 through OpenCV; no flow, so train them with `--compute-flow`),
@@ -138,9 +139,6 @@ def build_exported_engine(args, output_size):
     """The engine of `stabilize --from-export`, with the JAX package's
     checks of the flags against the artifact's header
     (stabnet_tpu/cli/main.py:204-258)."""
-    import torch
-
-    from stabnet_tpu_torch.config import get_config
     from stabnet_tpu_torch.stream.export import ExportedEngine, load_artifact
 
     if (args.infer_with_stable or args.infer_with_last or args.max_span > 1
@@ -155,10 +153,6 @@ def build_exported_engine(args, output_size):
         data, meta = load_artifact(args.from_export)
     except ValueError as e:
         raise SystemExit(f"--from-export: {e}")
-    if meta["device"] != torch.device(args.device).type:
-        raise SystemExit(f"the artifact was traced for {meta['device']}; a "
-                         f"torch.export program runs on the device it was traced "
-                         f"on: pass --device {meta['device']} or re-export")
     if output_size and tuple(meta["out_hw"]) != output_size:
         raise SystemExit(f"--output-size {output_size} conflicts with the artifact's "
                          f"baked {tuple(meta['out_hw'])}; re-export for a different "
@@ -172,11 +166,10 @@ def build_exported_engine(args, output_size):
     if args.batch <= 1 and streams != 1:
         raise SystemExit(f"artifact baked for {streams} streams; pass --batch "
                          f"{streams} to serve it, or export with --streams 1")
-    step_len = meta.get("step_len")
-    engine = ExportedEngine(data[:step_len], get_config(meta["config"]), meta["out_hw"],
-                            streams=streams,
-                            scan_data=data[step_len:] if step_len is not None else None,
-                            segment=meta.get("segment"), device=args.device)
+    try:
+        engine = ExportedEngine.from_artifact(data, meta, device=args.device)
+    except ValueError as e:
+        raise SystemExit(f"--from-export: {e}")
     return engine, meta
 
 
@@ -433,15 +426,23 @@ def cmd_convert_ckpt(args):
 
 def cmd_export(args):
     """The serving step (and with --segment, K steps unrolled), weights
-    baked in, as a self-describing `torch.export` artifact."""
+    baked in, traced once on --device and made for each of --platforms, as
+    a self-describing `torch.export` artifact."""
     import time
 
     import numpy as np
+    import torch
 
-    from stabnet_tpu_torch.stream.export import (ExportedEngine, export_scan_segment,
+    from stabnet_tpu_torch.stream.export import (ExportedEngine, check_platforms,
+                                                 export_programs, export_scan_segment,
                                                  export_stream_step, load_artifact,
                                                  save_artifact)
 
+    traced = torch.device(args.device).type
+    try:
+        platforms = check_platforms(args.platforms or [traced])
+    except ValueError as e:
+        raise SystemExit(f"--platforms: {e}")
     out_hw = tuple(args.output_size)
     engine = build_engine(args.config, args.weights, args.refine, out_hw, args.device,
                           model_dir=args.model_dir, tf_checkpoint=args.tf_checkpoint)
@@ -449,17 +450,27 @@ def cmd_export(args):
     data = export_stream_step(engine, out_hw, streams=args.streams)
     scan_data = (export_scan_segment(engine, out_hw, args.streams, args.segment)
                  if args.segment else None)
-    save_artifact(args.out, data, engine.cfg, out_hw, args.streams, args.refine,
-                  engine.device, scan_data=scan_data, segment=args.segment)
-    total = len(data) + (len(scan_data) if scan_data else 0)
+    try:
+        steps = export_programs(data, traced, platforms)
+        scans = (export_programs(scan_data, traced, platforms) if scan_data
+                 else dict.fromkeys(platforms))
+    except ValueError as e:
+        raise SystemExit(f"--platforms: {e}")
+    programs = {p: (steps[p], scans[p]) for p in platforms}
+    save_artifact(args.out, programs, engine.cfg, out_hw, args.streams, args.refine,
+                  segment=args.segment)
+    total = sum(len(d) for parts in programs.values() for d in parts if d)
     print(f"exported {total / 1e6:.1f} MB -> {args.out} in "
-          f"{time.perf_counter() - t0:.1f} s (device {engine.device.type})"
+          f"{time.perf_counter() - t0:.1f} s (traced on {traced}; platforms: "
+          f"{', '.join(platforms)})"
           + (f" (+{args.segment}-frame segment)" if scan_data else ""))
     if args.selftest:
-        blob, meta = load_artifact(args.out)
-        step_len = meta.get("step_len")
-        served = ExportedEngine(blob[:step_len], engine.cfg, out_hw, streams=args.streams,
-                                device=args.device)
+        # As the JAX package's selftest (stabnet_tpu/cli/main.py:537-542).
+        if traced not in platforms:
+            print(f"selftest skipped: artifact lowered for {', '.join(platforms)}; "
+                  f"current device is {traced}")
+            return
+        served = ExportedEngine.from_artifact(*load_artifact(args.out), device=args.device)
         S, (Ho, Wo) = args.streams, out_hw
         gray = np.zeros((S, engine.cfg.height, engine.cfg.width), np.float32)
         _, out = served.step(served.init(gray), gray, np.zeros((S, Ho, Wo, 3), np.uint8))
@@ -630,8 +641,10 @@ def main(argv=None):
     p.add_argument("--output-size", type=int, nargs=2, default=[720, 1280],
                    metavar=("H", "W"))
     p.add_argument("--device", default="cuda",
-                   help="the device to trace on, which the artifact then runs "
-                        "on (cuda or cpu)")
+                   help="the device to trace on (cuda or cpu)")
+    p.add_argument("--platforms", nargs="+", default=None, metavar="PLATFORM",
+                   help="the device types to make a program for, each moved "
+                        "from the traced one (cuda, cpu; default: --device's)")
     p.add_argument("--selftest", action="store_true",
                    help="load the artifact and run one step on zeros")
     p.set_defaults(fn=cmd_export)

@@ -10,8 +10,15 @@ with a (S, K) validity mask applied on the device.  The kernels are
 (K1) as the live engine does; serving from the artifact needs the port's
 package for those two ops and nothing of its model code or checkpoints.
 
-A program runs on the device it was traced on: an artifact traced on a
-card serves on a card (the JAX package lowers for named platforms instead).
+A program is traced once, on the engine's device; `export_programs` makes
+the program for each other device type asked for (`cuda`, `cpu`: the names
+`jax.export` uses) with `torch.export.passes.move_to_device_pass`, which
+moves the weights and constants and rewrites the devices baked into the
+graph.  The custom ops dispatch on their tensors' device, so a CUDA program
+launches K2m and K1 and a CPU program runs their plain versions, wherever
+it was traced (the JAX package's multi-platform artifact falls back to the
+XLA sampler everywhere instead).
+
 Signatures, with S streams, H x W the model scale and Ho x Wo the output:
 
   step:    (frames, masks (S, L, H, W) f32, ptr () int64, all_black (S, H, W)
@@ -23,10 +30,12 @@ Signatures, with S streams, H x W the model scale and Ho x Wo the output:
            -> (warped (S, K, Ho, Wo, 3), frames', masks', ptr', all_black')
 
 The artifact file is the JAX package's layout: a magic line, a 4-byte
-length, a JSON header (`config`, `out_hw`, `streams`, `refine`, and with a
-baked segment `step_len` and `segment`), then the payloads; here each
-payload is one `torch.export.save`, and the header also names its `format`
-("torch.export") and the `device` type it was traced on.
+length, a JSON header (`config`, `out_hw`, `streams`, `refine`,
+`platforms`, and with a baked segment `segment`), then the payloads.  Here
+each payload is one `torch.export.save`; the header also names its
+`format` ("torch.export") and lists under `programs` each device type's
+step (and segment) as [offset, length] into the payloads.  A header of the
+first layout, one `device` with `step_len`, still loads.
 """
 
 from __future__ import annotations
@@ -34,7 +43,7 @@ from __future__ import annotations
 import io
 import json
 import types
-from typing import Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,6 +55,7 @@ from stabnet_tpu_torch.stream.engine import (StepOutput, StreamEngine, StreamSta
 
 FORMAT = "torch.export"
 _MAGIC = b"STBX1\n"
+PLATFORMS = ("cuda", "cpu")   # the device types a program is made for
 
 
 class _Step(nn.Module):
@@ -125,6 +135,46 @@ def export_scan_segment(engine: StreamEngine, out_hw: Tuple[int, int], streams: 
     return _export(_Segment(engine.model, cfg, engine.refine, (Ho, Wo)), args)
 
 
+def check_platforms(platforms: Sequence[str]) -> Tuple[str, ...]:
+    """The device types of `export --platforms`, in order, once each;
+    raises ValueError on a platform no program can be made for."""
+    out = []
+    for p in platforms:
+        if p == "tpu":
+            raise ValueError("the port has no TPU program: a torch.export program "
+                             f"runs on {' or '.join(PLATFORMS)}")
+        if p not in PLATFORMS:
+            raise ValueError(f"unknown platform {p!r}; choose from {', '.join(PLATFORMS)}")
+        if p not in out:
+            out.append(p)
+    return tuple(out)
+
+
+def _moved(data: bytes, device: str):
+    """The program of `data` with its weights, constants and the devices
+    baked into its graph on `device`."""
+    from torch.export.passes import move_to_device_pass
+
+    if device == "cuda" and not torch.cuda.is_available():
+        raise ValueError("a cuda program is made on a machine with a card: "
+                         "torch.cuda.is_available() is False here")
+    return move_to_device_pass(torch.export.load(io.BytesIO(data)), device)
+
+
+def export_programs(data: bytes, traced: str, platforms: Sequence[str]) -> Dict[str, bytes]:
+    """The program `data`, traced on device type `traced`, for each of
+    `platforms`: the traced one as it is, every other moved."""
+    out = {}
+    for p in check_platforms(platforms):
+        if p == traced:
+            out[p] = data
+            continue
+        buf = io.BytesIO()
+        torch.export.save(_moved(data, p), buf)
+        out[p] = buf.getvalue()
+    return out
+
+
 def _load_program(data: bytes):
     # The program's kernels are the port's custom ops: registered on import.
     from stabnet_tpu_torch.ops import cuda_warp  # noqa: F401
@@ -155,29 +205,39 @@ def initial_state(first_gray: torch.Tensor, cfg: StabNetConfig) -> StreamState:
 
 # -- self-describing artifact files -------------------------------------------
 
-def save_artifact(path: str, data: bytes, cfg: StabNetConfig, out_hw: Tuple[int, int],
-                  streams: int, refine: int, device: str,
-                  scan_data: Optional[bytes] = None, segment: Optional[int] = None) -> None:
-    """Write `data` (and a baked segment, `scan_data`, after it) behind the
+def save_artifact(path: str, programs: Dict[str, Tuple[bytes, Optional[bytes]]],
+                  cfg: StabNetConfig, out_hw: Tuple[int, int], streams: int, refine: int,
+                  segment: Optional[int] = None) -> None:
+    """Write each device type's (step, segment or None) programs behind the
     JSON header that lets a serving process rebuild the run from the file."""
-    meta = {"format": FORMAT, "device": torch.device(device).type, "config": cfg.name,
+    meta = {"format": FORMAT, "platforms": list(programs), "config": cfg.name,
             "out_hw": [int(out_hw[0]), int(out_hw[1])], "streams": int(streams),
-            "refine": int(refine)}
-    if scan_data is not None:
+            "refine": int(refine), "programs": {}}
+    payload = []
+    off = 0
+    for device, parts in programs.items():
+        entry = {}
+        for name, data in zip(("step", "segment"), parts):
+            if data is None:
+                continue
+            entry[name] = [off, len(data)]
+            payload.append(data)
+            off += len(data)
+        meta["programs"][device] = entry
+    if any("segment" in e for e in meta["programs"].values()):
         if not segment or segment < 1:
-            raise ValueError("scan_data needs its baked segment length")
-        meta["step_len"] = len(data)
+            raise ValueError("a segment program needs its baked segment length")
         meta["segment"] = int(segment)
-        data = data + scan_data
     header = json.dumps(meta).encode()
     with open(path, "wb") as f:
-        f.write(_MAGIC + len(header).to_bytes(4, "little") + header + data)
+        f.write(_MAGIC + len(header).to_bytes(4, "little") + header + b"".join(payload))
 
 
 def load_artifact(path: str) -> Tuple[bytes, dict]:
-    """Read an artifact file -> (payload bytes, header dict).  Refuses a
-    file without the header (a bare payload), a JAX package artifact and any
-    other format: their bytes are never run."""
+    """Read an artifact file -> (payload bytes, header dict), the header of
+    the first layout (one `device`) given `platforms` and `programs` too.
+    Refuses a file without the header (a bare payload), a JAX package
+    artifact and any other format: their bytes are never run."""
     with open(path, "rb") as f:
         blob = f.read()
     if blob[: len(_MAGIC)] != _MAGIC:
@@ -191,17 +251,45 @@ def load_artifact(path: str) -> Tuple[bytes, dict]:
         what = ("a jax.export artifact of the JAX package (serve it with "
                 "stabnet_tpu)" if fmt is None else f"format {fmt!r}")
         raise ValueError(f"{path}: {what}; this port serves {FORMAT!r} artifacts only")
-    return blob[off + n:], meta
+    payload = blob[off + n:]
+    if "programs" not in meta:
+        step_len = meta.get("step_len", len(payload))
+        entry = {"step": [0, step_len]}
+        if step_len < len(payload):
+            entry["segment"] = [step_len, len(payload) - step_len]
+        meta["platforms"] = [meta["device"]]
+        meta["programs"] = {meta["device"]: entry}
+    return payload, meta
+
+
+def select_program(payload: bytes, meta: dict, device) -> Tuple[bytes, Optional[bytes]]:
+    """The (step, segment or None) programs of `device`'s type; raises
+    ValueError, naming the artifact's platforms, if it lists none."""
+    dev = torch.device(device).type
+    if dev not in meta["programs"]:
+        platforms = ", ".join(meta["platforms"])
+        raise ValueError(f"artifact lowered for {platforms}; current device is {dev}: "
+                         f"pass --device {meta['platforms'][0]} or re-export with "
+                         f"--platforms {dev}")
+    entry = meta["programs"][dev]
+
+    def part(name):
+        if name not in entry:
+            return None
+        off, n = entry[name]
+        return payload[off: off + n]
+
+    return part("step"), part("segment")
 
 
 class ExportedEngine:
-    """A `StreamDriver` engine backed by an artifact: `stabilize
-    --from-export`.  It serves the production path only: the history
-    ablations and the device gray need a live engine, and the stream count
-    and segment length are the baked ones.  Color frames of another size
-    are resized on the host to the baked `out_hw`.  `continue_clip` exists
-    only when a segment is baked (the driver's chunked and streaming modes
-    look for it)."""
+    """A `StreamDriver` engine backed by an artifact's programs for one
+    device (`from_artifact`): `stabilize --from-export`.  It serves the
+    production path only: the history ablations and the device gray need a
+    live engine, and the stream count and segment length are the baked
+    ones.  Color frames of another size are resized on the host to the
+    baked `out_hw`.  `continue_clip` exists only when a segment is baked
+    (the driver's chunked and streaming modes look for it)."""
 
     def __init__(self, data: bytes, cfg: StabNetConfig, out_hw: Tuple[int, int],
                  streams: int = 1, scan_data: Optional[bytes] = None,
@@ -217,6 +305,16 @@ class ExportedEngine:
         self.segment = int(segment) if scan_data else None
         if self._scan is not None:
             self.continue_clip = self._continue_clip
+
+    @classmethod
+    def from_artifact(cls, payload: bytes, meta: dict, device=None) -> "ExportedEngine":
+        """The engine of `load_artifact`'s result on `device` (CUDA unless
+        the CPU is asked for), from the artifact's program for its type."""
+        from stabnet_tpu_torch.config import get_config
+
+        step, scan = select_program(payload, meta, "cuda" if device is None else device)
+        return cls(step, get_config(meta["config"]), meta["out_hw"], streams=meta["streams"],
+                   scan_data=scan, segment=meta.get("segment"), device=device)
 
     def _put(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a)).to(self.device)

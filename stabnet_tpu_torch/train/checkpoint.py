@@ -5,6 +5,8 @@ train_bundle_nobm.py:195,204-208,271-272).
 statistics (its state_dict) and the optimizer's moments, written with
 `torch.save`; the five newest are kept, as the JAX package's Orbax manager
 keeps them.  `load_model_state` reads the model part alone, for serving.
+Neither reads a model directory of the JAX package (Orbax): both name
+`scripts/torch_from_orbax.py`, which converts one.
 `transfer_from_imagenet` is the cold-start transfer restore of an ImageNet
 ResNet-v2-50 that keeps the 13-channel conv1 and the head
 (train_bundle_nobm.py:101-102,184-191).
@@ -34,6 +36,23 @@ def _steps(directory: str) -> List[int]:
                   if d.isdigit() and os.path.isfile(os.path.join(directory, d, _FILE)))
 
 
+def _missing(directory: str) -> FileNotFoundError:
+    """The error for a directory without a `state.pt`, naming the converter
+    when it holds the JAX package's Orbax checkpoints (a step directory with
+    `_CHECKPOINT_METADATA`)."""
+    orbax = [d for d in (os.listdir(directory) if os.path.isdir(directory) else [])
+             if d.isdigit()
+             and os.path.isfile(os.path.join(directory, d, "_CHECKPOINT_METADATA"))]
+    if orbax:
+        step = max(orbax, key=int)
+        return FileNotFoundError(
+            f"{directory} holds an Orbax checkpoint of the JAX package (step {step}), "
+            f"which this package does not read; convert it with `python "
+            f"scripts/torch_from_orbax.py --model-dir {directory} --out DIR "
+            f"--config NAME` and pass DIR")
+    return FileNotFoundError(f"no checkpoint in {directory}")
+
+
 def latest_step(directory: str) -> Optional[int]:
     """The newest checkpointed step in `directory`, or None."""
     steps = _steps(directory)
@@ -61,7 +80,7 @@ def restore(directory: str, state: TrainState) -> TrainState:
     model, optimizer and step); raises FileNotFoundError if there is none."""
     step = latest_step(directory)
     if step is None:
-        raise FileNotFoundError(f"no checkpoint in {directory}")
+        raise _missing(directory)
     dev = next(state.model.parameters()).device
     ckpt = torch.load(os.path.join(directory, str(step), _FILE),
                       map_location=dev, weights_only=True)
@@ -77,7 +96,7 @@ def load_model_state(directory: str) -> Dict[str, torch.Tensor]:
     the CPU; raises FileNotFoundError if there is none."""
     step = latest_step(directory)
     if step is None:
-        raise FileNotFoundError(f"no checkpoint in {directory}")
+        raise _missing(directory)
     ckpt = torch.load(os.path.join(directory, str(step), _FILE),
                       map_location="cpu", weights_only=True)
     logger.info("loaded model of checkpoint step=%d from %s", step, directory)

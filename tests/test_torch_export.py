@@ -12,6 +12,7 @@ solves with a portable solver, and the frameworks round convolutions
 differently).
 """
 
+import json
 import os
 
 import jax
@@ -31,10 +32,11 @@ from stabnet_tpu_torch.config import get_config
 from stabnet_tpu_torch.data.synthetic import make_video
 from stabnet_tpu_torch.models import convert_flax_variables, make_model, scale_theta_head
 from stabnet_tpu_torch.stream import DeployOptions, StreamDriver, StreamEngine, video_io
-from stabnet_tpu_torch.stream.export import (ExportedEngine, export_scan_segment,
-                                             export_stream_step, initial_state,
-                                             load_artifact, load_stream_step,
-                                             save_artifact)
+from stabnet_tpu_torch.stream.export import (_MAGIC, ExportedEngine, _moved,
+                                             export_scan_segment, export_stream_step,
+                                             initial_state, load_artifact,
+                                             load_stream_step, save_artifact,
+                                             select_program)
 
 torch.set_num_threads(1)
 
@@ -164,12 +166,17 @@ def test_segment_serves_unequal_clips_as_the_live_batch(batch_artifact):
 def test_header_round_trip_and_refusals(batch_artifact, tmp_path):
     engine, step_data, seg_data = batch_artifact
     path = str(tmp_path / "a.stbx")
-    save_artifact(path, step_data, CFG, OUT_HW, 2, 1, "cpu", scan_data=seg_data, segment=4)
+    save_artifact(path, {"cpu": (step_data, seg_data)}, CFG, OUT_HW, 2, 1, segment=4)
     blob, meta = load_artifact(path)
-    assert meta == {"format": "torch.export", "device": "cpu", "config": "tiny",
+    n = len(step_data)
+    assert meta == {"format": "torch.export", "platforms": ["cpu"], "config": "tiny",
                     "out_hw": list(OUT_HW), "streams": 2, "refine": 1,
-                    "step_len": len(step_data), "segment": 4}
+                    "programs": {"cpu": {"step": [0, n], "segment": [n, len(seg_data)]}},
+                    "segment": 4}
     assert blob == step_data + seg_data
+    assert select_program(blob, meta, "cpu") == (step_data, seg_data)
+    with pytest.raises(ValueError, match="artifact lowered for cpu; current device is cuda"):
+        select_program(blob, meta, "cuda")
 
     jax_path = str(tmp_path / "jax.stbx")
     jax_save_artifact(jax_path, b"payload", jax_config("tiny"), OUT_HW, 1, 1)
@@ -252,3 +259,84 @@ def test_cli_export_then_stabilize_from_export(videos, tmp_path, capsys):
     main(["stabilize", "--from-export", seg, "--output-dir", str(tmp_path / "streamed"),
           "--stream-chunk", "4", *common])
     assert _read(tmp_path / "streamed" / "output" / "clip.avi.avi").shape == (9, *OUT_HW, 3)
+
+
+def test_cli_export_platforms(videos, tmp_path, capsys):
+    """`export --platforms cpu` (listed twice) and the default both write a
+    header listing the CPU programs; the CPU program serves bit for bit as
+    the live engine; `tpu`, an unknown platform and, without a card, `cuda`
+    are refused before anything is written; serving on an unlisted device is
+    refused with the artifact's platforms and the current device."""
+    arts = {}
+    for name, extra in (("default", []), ("cpu", ["--platforms", "cpu", "cpu"])):
+        arts[name] = str(tmp_path / f"{name}.stbx")
+        main(["export", "--config", "tiny", "--out", arts[name], "--output-size",
+              *map(str, OUT_HW), "--device", "cpu", "--segment", "4", *extra])
+        assert "platforms: cpu)" in capsys.readouterr().out
+        blob, meta = load_artifact(arts[name])
+        assert meta["platforms"] == ["cpu"] and list(meta["programs"]) == ["cpu"]
+        (s0, sn), (g0, gn) = meta["programs"]["cpu"]["step"], meta["programs"]["cpu"]["segment"]
+        assert (s0, g0, s0 + sn + gn) == (0, sn, len(blob))
+    assert load_artifact(arts["default"])[0] == load_artifact(arts["cpu"])[0]
+
+    engine = ExportedEngine.from_artifact(*load_artifact(arts["cpu"]), device="cpu")
+    live = _engine()
+    gray, color = _frames(1, 5, seed=6)
+    want, got = live.init(gray[:, 0]), engine.init(gray[:, 0])
+    for t in range(1, 5):
+        want, w = live.step(want, gray[:, t], color[:, t])
+        got, g = engine.step(got, gray[:, t], color[:, t])
+        assert torch.equal(g.warped_color, w.warped_color) and torch.equal(g.black, w.black)
+    assert torch.equal(got.frames, want.frames) and torch.equal(got.all_black, want.all_black)
+
+    refusals = [(["tpu"], "no TPU program"), (["cpu", "rocm"], "unknown platform 'rocm'")]
+    if not torch.cuda.is_available():
+        refusals.append((["cpu", "cuda"], "a cuda program is made on a machine with a card"))
+    for platforms, msg in refusals:
+        out = str(tmp_path / "refused.stbx")
+        with pytest.raises(SystemExit, match=msg):
+            main(["export", "--config", "tiny", "--out", out, "--output-size",
+                  *map(str, OUT_HW), "--device", "cpu", "--platforms", *platforms])
+        assert not os.path.exists(out)
+    with pytest.raises(SystemExit, match="artifact lowered for cpu; current device is cuda"):
+        main(["stabilize", "--from-export", arts["cpu"], "--test-list",
+              str(videos / "list.txt"), "--prefix", str(videos), "--output-dir",
+              str(tmp_path / "x"), "--device", "cuda"])
+
+
+def test_moved_program_keeps_nothing_on_the_traced_device(step_s1):
+    """`move_to_device_pass` on the traced step: every weight and constant
+    (the shape-keyed caches that the real call before tracing filled, K2m's
+    tables among them) and every device baked into the graph lands on the
+    target ("meta" stands in for a second device here)."""
+    program = _moved(step_s1[1], "meta")
+    tensors = list(program.state_dict.values()) + [
+        v for v in program.constants.values() if isinstance(v, torch.Tensor)]
+    assert tensors and all(t.device.type == "meta" for t in tensors)
+    devices = [n.kwargs["device"] for n in program.graph.nodes if "device" in n.kwargs]
+    assert devices and all(torch.device(d).type == "meta" for d in devices)
+    for node in program.graph.nodes:
+        val = node.meta.get("val")
+        if isinstance(val, torch.Tensor):
+            assert val.device.type == "meta", node
+
+
+def test_first_layout_artifact_still_serves(batch_artifact, tmp_path):
+    """An artifact whose header names one `device` and splits its payload
+    at `step_len` (the layout before `--platforms`) loads and serves the
+    chunked batch bit for bit as the live engine."""
+    engine, step_data, seg_data = batch_artifact
+    header = json.dumps({"format": "torch.export", "device": "cpu", "config": "tiny",
+                         "out_hw": list(OUT_HW), "streams": 2, "refine": 1,
+                         "step_len": len(step_data), "segment": 4}).encode()
+    path = tmp_path / "first.stbx"
+    path.write_bytes(_MAGIC + len(header).to_bytes(4, "little") + header
+                     + step_data + seg_data)
+    blob, meta = load_artifact(str(path))
+    assert meta["platforms"] == ["cpu"]
+    assert select_program(blob, meta, "cpu") == (step_data, seg_data)
+    served = ExportedEngine.from_artifact(blob, meta, device="cpu")
+    assert served.segment == 4 and hasattr(served, "continue_clip")
+    clips = _clips()
+    _assert_same(StreamDriver(served).stabilize_batch(clips),
+                 StreamDriver(engine, DeployOptions()).stabilize_batch(clips, chunk=4))
