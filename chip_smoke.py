@@ -29,15 +29,21 @@ nonzero exit):
   4. the serving path at v2_93 (bf16, seeded random weights, theta head
      scaled by 0.05) on a 40-frame synthetic 720p clip: StreamDriver at S=1
      and StreamEngine.stabilize_clip at S=4, with the kernels' launch counts
-     read around each run;
+     (per graph replay) read around each run; then the serving graphs held
+     torch.equal to the eager stream_step / scan_frames (warped frames,
+     ring, all_black, crop): the S=1 driver and step loop with the device
+     gray, S=4 with a prefix valid, S=6 and refine 2, with each graph's
+     capture seconds and pool bytes;
   5. card against CPU in f32 (TF32 off), 8 frames;
   6. serving times: CUDA events, 5 warm-ups, median of 50 runs; K2m at
      S=1, 4, 6 and 10 (channels last) beside an empty kernel at its grid
      (the launch floor) and, at S=1 and S=4, the unfused chain it replaces
      (dense maps, black mask, frame copy, K2), K2 at S=1 and S=4, K1 and K3
      at 720p S=1 and S=4 and at 1080p (K3 is on no path, as in the JAX
-     package), K1 at the bench's S=6 at 720p and 1080p; the S=1 path's
-     device operations per frame;
+     package), K1 at the bench's S=6 at 720p and 1080p; the S=1 path as
+     graph replays and as eager steps, in turns: wall mean and p50, kernel
+     time, device idle share, device operations and host launches per
+     frame, K2m and K1 once per frame in the trace;
   7. K4 (splat) and K6b (map gradient) against their plain versions on the
      card, realistic and adversarial maps, K4 also on flow-like maps (every
      pass-2 tile sums in shared memory) and half of each; K5/K6 through
@@ -52,10 +58,13 @@ nonzero exit):
  11. TV-L1 flow: K2 in its edge-inclusive mode against its plain version,
      bit for bit, at the pyramid of the training shape, (10, 288, 512, 3)
      down to (10, 32, 64, 3), and at the metrics' pyramid, (32, 144, 256,
-     3) down to (32, 16, 32, 3), on clipped flow maps, and its times; one
-     tvl1_flow call at (10, 288, 512), fine_iters 40, with its launches
-     (20 of K2), time and device operations; card against CPU at
-     (2, 96, 128), bit for bit; a translation recovered on the card;
+     3) down to (32, 16, 32, 3), on clipped flow maps, and its times;
+     tvl1_flow at (10, 288, 512), fine_iters 40, and at the metrics' (32,
+     144, 256), fine_iters 100: the captured graph torch.equal the eager
+     flow, its launches per replay (20 of K2), ms per call both ways,
+     capture seconds and pool bytes, device operations and host launches
+     per call both ways; card against CPU at (2, 96, 128), bit for bit; a
+     translation recovered on the card;
  12. quality metrics: the S=1 driver keeping its input grays on the
      40-frame 720p clip, then score_stabilized_clip at 144x256 (launches,
      seconds per clip, every score in (0, 1]); evaluate_clip card against
@@ -68,7 +77,7 @@ nonzero exit):
      launches and time per iteration beside phase 10's;
  14. serving modes at v2_93 bf16 720p on phase 4's clips: the S=1 driver
      pipelined against synchronous (bit for bit, per-frame p50 and p90 of
-     each); stabilize_batch of clips of 40, 23 and 9 frames at 4 streams,
+     each, and each equal to phase 4's eager frames); stabilize_batch of clips of 40, 23 and 9 frames at 4 streams,
      chunked by 16 against unchunked and each clip against itself alone
      (bit for bit; K1 and K2m once per scanned step); the 4-clip batch's
      frames/s beside its host preparation; stabilize_stream over arrays at
@@ -83,28 +92,31 @@ nonzero exit):
      trunk grafted by transfer_from_imagenet, then one training step (finite
      losses; K2 2, K4 1, K6b 1 launches);
  16. export: the v2_93 bf16 720p serving step traced by torch.export at S=1,
-     and at S=4 with a 4-frame segment, saved, loaded from bytes and served:
+     and at S=4 with a 2-frame segment, saved, loaded from bytes and served:
      phase 4's clip through StreamDriver on the exported engine against the
      live one (bit for bit, K1 and K2m once per frame), the 4-clip batch on
-     the segment against the live batch chunked by 4 (bit for bit), export
+     the segment against the live batch chunked by 2 (bit for bit), export
      and load seconds, artifact bytes, "net" p50/p90 of each engine in
-     turns, and the device operations per frame of each; then `export
+     turns, and the device operations and host launches per frame of
+     each; then `export
      --platforms` through the CLI with --selftest, traced on the card for
      cuda and cpu and traced on the CPU for cpu and cuda: the header lists
      both programs, neither CUDA program's graph holds a cuDNN-, MKLDNN- or
      CUDA-specific operation, and each program serves on its own device bit
      for bit as the live engine there (each CUDA program the 40-frame clip
-     with K1 and K2m once per frame, each CPU program 4 frames with no
+     with K1 and K2m once per frame, each CPU program 2 frames with no
      kernel launched);
  17. data parallel: `train --data-parallel` through the CLI on phase 8's
-     shards for 2 steps in rank processes of this script: (a) one NCCL rank
+     shards for 2 steps in rank processes of this script, the three runs
+     at once: (a) one NCCL rank
      under torch.distributed.run against the plain run, v2_93 bf16 batch
      10, bit for bit (cuDNN's deterministic algorithms in both); (b) two
      gloo ranks on the one card, global batch 10, against one process on
      the merged batch in f32 (TF32 off), within the CPU test's rtol 3.4e-3;
      K2 2, K4 1 and K6b 1 launches per rank per step, ms per step of each;
  18. sharded serving: stabilize_clips_sharded over two replicas on the card
-     at S=4 against each shard's own run at S=2, and the driver's sharded
+     at S=4 against each shard's own run at S=2 and the eager scan_frames
+     there (frames, ring, all_black, crop), and the driver's sharded
      batch over the card's one replica against the unsharded batch, bit for
      bit;
  19. doctor: `python -m stabnet_tpu_torch.cli.main doctor --compact` in a
@@ -129,7 +141,7 @@ nonzero exit):
      name and power limit on the stats line; the launches each leg adds to
      the stats line's counts: K1 and K2m once per step of each run (warm-up
      and repeats), no other kernel;
- 22. quality gate: scripts/torch_quality_gate.py at --steps 200 --clips 4
+ 22. quality gate: scripts/torch_quality_gate.py at --steps 100 --clips 2
      --frames 40 in a process of its own (`chip_smoke.py _gate ARGS`, which
      counts the launches around its training, each served batch and each
      scored clip): exit 0 or 1 as its report says (a pass is not required
@@ -137,8 +149,9 @@ nonzero exit):
      launches: per training step K2 2, K4 1, K6b 1; per served frame K1 and
      K2m once; per scored clip 20 K2 per tvl1_flow call and nothing else;
  23. endurance: scripts/torch_endurance.py at v2_93 (target 4, segments of
-     2 in fresh processes, the second through --restore, one 20-frame clip
-     scored after each): its verdict record and scores.jsonl;
+     2 in fresh processes, the second through --restore, 10 examples, one
+     20-frame clip scored at the end), started beside phase 22: its verdict
+     record and scores.jsonl;
 and in phase 12 the card-against-CPU gap of fit_homographies split by
 cause (its normal equations summed in float64 on both devices).  Each
 phase prints its seconds ("[N seconds]"), and a line before the kernels
@@ -323,41 +336,77 @@ def device_ms(fn, calls: int = 20, warmup: int = 5, reps: int = 50) -> float:
     return float(np.median(times))
 
 
-def profile_path(engine, clip: np.ndarray, frames: int = 20, device_gray: bool = True):
+# The CUDA runtime and driver calls that queue work on the device: a host
+# launch each, whatever the work (a kernel, a copy, a fill, a whole graph).
+HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                 "cudaMemcpy2DAsync", "cudaMemsetAsync", "cudaMemset2DAsync")
+
+
+def profile_counts(prof, calls: int):
+    """Per call, from a torch.profiler run over `calls` calls: the device
+    operations that ran (kernels, copies, fills: what runs inside a graph
+    counts too), their summed time in ms, the host launches (runtime calls
+    that queue device work; a graph replay is one) and the device events by
+    name."""
+    events = prof.key_averages()
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    host = sum(e.count for e in events if e.key in HOST_LAUNCHES)
+    return (sum(e.count for e in device) / calls,
+            sum(e.self_device_time_total for e in device) / calls / 1e3,
+            host / calls, device)
+
+
+def profile_path(engine, clip: np.ndarray, frames: int = 20, device_gray: bool = True,
+                 eager: bool = False):
     """The same `frames` steps at S=1 with per-frame readback, run twice from
     a fresh state: without the profiler for the wall time, then under
     torch.profiler for the summed kernel time and the kernels that take most.
     The model-scale grays are derived on the device, or with `device_gray`
-    False made on the host beforehand and uploaded each step.
-    Returns (wall, profiled wall, kernel time) in ms/frame, the device
-    operations (kernels, copies, fills) per frame and the top list."""
+    False made on the host beforehand and uploaded each step.  The steps are
+    the engine's (graph replays), or with `eager` the eager `stream_step` as
+    the engine ran it before its graphs (each frame uploaded, then the step).
+    Returns (wall mean, wall p50, profiled wall, kernel time) in ms/frame,
+    the device operations (kernels, copies, fills) and host launches per
+    frame, the launches per frame of K2m and K1 in the trace, and the top
+    list."""
     from torch.profiler import ProfilerActivity, profile
 
     from stabnet_tpu_torch.stream import video_io
+    from stabnet_tpu_torch.stream.engine import stream_step
 
     cfg = engine.cfg
     first = video_io.to_gray_train(clip[0], cfg.height, cfg.width)[None]
     grays = [None if device_gray else video_io.to_gray_train(f, cfg.height, cfg.width)[None]
              for f in clip[: frames + 1]]
 
+    def step(state, gray, color):
+        if not eager:
+            return engine.step(state, gray, color)
+        return stream_step(engine.model, state, None if gray is None else engine._put(gray),
+                           engine._put_color(color), cfg, refine=engine.refine,
+                           out_hw=engine.out_hw)
+
     def run():
         state = engine.init(first)
         torch.cuda.synchronize()
+        times = []
         t0 = time.perf_counter()
         for t in range(1, frames + 1):
-            state, out = engine.step(state, grays[t], clip[None, t])
+            ts = time.perf_counter()
+            state, out = step(state, grays[t], clip[None, t])
             out.warped_color.cpu()
-        return (time.perf_counter() - t0) / frames * 1e3
+            times.append(time.perf_counter() - ts)
+        return (time.perf_counter() - t0) / frames * 1e3, float(np.median(times)) * 1e3
 
-    wall = run()
+    wall, wall_p50 = run()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall_prof = run()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    ops = sum(e.count for e in kernels) / frames
+        wall_prof, _ = run()
+    ops, busy, host, kernels = profile_counts(prof, frames)
+    per_frame = {name: sum(e.count for e in kernels if name in e.key) / frames
+                 for name in ("warp_mesh_kernel", "warp_uint8_kernel")}
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    return (wall, wall_prof, busy_us / frames / 1e3, ops,
+    return (wall, wall_p50, wall_prof, busy, ops, host, per_frame,
             [(e.key[:48], round(e.self_device_time_total / frames / 1e3, 4), e.count // frames)
              for e in top])
 
@@ -582,6 +631,114 @@ def check_clip(all_black: np.ndarray, rect, what: str) -> float:
     return share
 
 
+def eager_steps(model, cfg, state, grays, colors, refine: int = 1):
+    """`stream_step` frame by frame on the card, the eager reference of the
+    graphs: grays (S, T', H, W) on the card, or None to derive them there;
+    colors (S, T', Hf, Wf, 3) uint8 on the card.  Returns (warped (S, T',
+    Hf, Wf, 3), state)."""
+    from stabnet_tpu_torch.stream.engine import stream_step
+
+    color_cf = colors.permute(0, 1, 4, 2, 3).contiguous()
+    warped = []
+    for t in range(colors.shape[1]):
+        state, out = stream_step(model, state, None if grays is None else grays[:, t],
+                                 color_cf[:, t], cfg, refine=refine)
+        warped.append(out.warped_color)
+    return torch.stack(warped, dim=1), state
+
+
+def held_equal(what: str, warped, state, want_warped, want_state) -> None:
+    """The graphs' frames, ring, crop accumulator and crops against the
+    eager functions': torch.equal each."""
+    from stabnet_tpu_torch.stream import crop_rectangle
+
+    check(torch.equal(warped, want_warped), f"{what}: warped frames differ from eager")
+    for f in ("frames", "masks", "all_black"):
+        check(torch.equal(getattr(state, f), getattr(want_state, f)),
+              f"{what}: {f} differs from eager")
+    check(int(state.ptr) == int(want_state.ptr), f"{what}: ptr differs from eager")
+    black = state.all_black.cpu().numpy()
+    check([crop_rectangle(b) for b in black]
+          == [crop_rectangle(b) for b in want_state.all_black.cpu().numpy()],
+          f"{what}: crop differs from eager")
+
+
+def phase_graphs(dev, engine, model, clips: np.ndarray, grays: np.ndarray, driver_res):
+    """The serving graphs against the eager step on the card, torch.equal:
+    the S=1 driver (phase 4's pipelined run) and the step loop with the
+    device gray, S=4 with a prefix `valid`, S=6, and refine 2.  Returns the
+    eager S=1 frames (phase 14 holds the driver's sync and pipelined runs to
+    them)."""
+    from stabnet_tpu_torch.stream import StreamEngine, video_io
+    from stabnet_tpu_torch.stream.engine import init_state, scan_frames
+
+    cfg, (S, T) = engine.cfg, clips.shape[:2]
+    colors = torch.from_numpy(clips).to(dev)
+    g = torch.from_numpy(grays).to(dev)
+    first = video_io.to_gray_train(clips[0, 0], cfg.height, cfg.width, cfg.crop_rate)[None]
+
+    # S=1, device gray: the driver's frames and a step loop's ring.
+    want1, wstate1 = eager_steps(engine.model, cfg, init_state(
+        torch.from_numpy(first).to(dev), cfg), None, colors[:1, 1:])
+    frames1 = want1[0].cpu().numpy()
+    check(np.array_equal(driver_res.frames[1:], frames1)
+          and np.array_equal(driver_res.all_black, wstate1.all_black[0].cpu().numpy()),
+          "S=1 driver (graphs, pipelined) differs from eager")
+    state = engine.init(first)
+    steps = []
+    for t in range(1, T):
+        state, out = engine.step(state, None, clips[None, 0, t])
+        steps.append(out.warped_color)
+    held_equal("S=1 step loop", torch.stack(steps, dim=1), state, want1, wstate1)
+
+    # S=4 with a prefix validity (clips of 40, 31, 17 and 2 frames).
+    valid = np.ones((S, T - 1), bool)
+    for s, n in enumerate((T, 31, 17, 2)[:S]):
+        valid[s, n - 1:] = False
+    w4, st4 = engine.stabilize_clip(grays, clips, valid=valid)
+    ww4, wst4 = scan_frames(engine.model, init_state(g[:, 0], cfg), g[:, 1:], colors[:, 1:],
+                            cfg, valid=valid)
+    held_equal(f"S={S} with a prefix valid", w4, st4, ww4, wst4)
+
+    # S=6, the bench's batch, from the clips repeated.
+    six = [s % S for s in range(6)]
+    w6, st6 = engine.stabilize_clip(grays[six], clips[six])
+    ww6, wst6 = scan_frames(engine.model, init_state(g[six, 0], cfg), g[six, 1:],
+                            colors[six, 1:], cfg)
+    held_equal("S=6", w6, st6, ww6, wst6)
+    del w6, ww6, st6, wst6
+
+    # Refine 2 at S=1, host gray, through the step.
+    engine2 = StreamEngine(model, cfg, refine=2, device=dev)
+    state = engine2.init(grays[:1, 0])
+    steps = []
+    for t in range(1, T):
+        state, out = engine2.step(state, grays[:1, t], clips[:1, t])
+        steps.append(out.warped_color)
+    want2, wstate2 = eager_steps(engine2.model, cfg, init_state(g[:1, 0], cfg),
+                                 g[:1, 1:], colors[:1, 1:], refine=2)
+    held_equal("refine 2", torch.stack(steps, dim=1), state, want2, wstate2)
+    stats = engine.graphs.stats() + engine2.graphs.stats()
+    print(f"[4 graphs] v2_93 bf16 720p T={T}: the serving graphs torch.equal the eager "
+          f"stream_step / scan_frames (warped frames, ring, all_black, crop) for the S=1 "
+          f"driver (pipelined) and step loop with the device gray, S={S} with a prefix "
+          f"valid, S=6 and refine 2 (S=1); {len(stats)} graphs, capture (and "
+          f"instantiation) s / eager first call s / pool MB: "
+          + "; ".join(f"{graph_label(st)} {st['capture_s']:.3f}/{st['warmup_s']:.3f}/"
+                      f"{st['pool_bytes'] / 2 ** 20:.1f}" for st in stats))
+    return frames1
+
+
+def graph_label(st: dict) -> str:
+    """A serving graph's key for a printed line: streams, gray mode, flags."""
+    key = st["key"]
+    if key[0] != "stream_step":
+        return str(key[0])
+    device_gray, override, valid = key[-3:]
+    return (f"S={st['shapes'][0][0]} refine {key[2]}" + (" device-gray" if device_gray else "")
+            + (" override" if override else "") + (" valid" if valid else ""))
+
+
 def phase_path(clips: np.ndarray, dev):
     """The main path: v2_93 bf16 at 720p, S=1 through StreamDriver and S=4
     through StreamEngine.stabilize_clip; launch counts read around each."""
@@ -626,8 +783,10 @@ def phase_path(clips: np.ndarray, dev):
     print(f"[4 path] v2_93 bf16 720p T={T}: S=1 StreamDriver launches {launches}, "
           f"crop {res.crop_rect}, black share {share1:.4f}; S={S} "
           f"StreamEngine.stabilize_clip launches {launches4}, black shares "
-          f"{[round(s, 4) for s in shares]}")
-    return engine, driver, grays, launches
+          f"{[round(s, 4) for s in shares]} (one graph replay per frame, the first "
+          f"frame of each signature eager)")
+    eager1 = phase_graphs(dev, engine, model, clips, grays, res)
+    return engine, driver, grays, launches, eager1
 
 
 def phase_card_vs_cpu(clips: np.ndarray, dev, T: int = 8):
@@ -794,7 +953,8 @@ def phase_times(card: str, gen: torch.Generator, dev, engine, driver, clips,
     S = clips.shape[0]
     s4_fps = S * (T - 1) / (time.perf_counter() - t0)
     del warped
-    wall, wall_prof, busy, ops, top = profile_path(engine, clips[0])
+    prof = [(mode, profile_path(engine, clips[0], eager=mode == "eager"))
+            for mode in ("graph", "eager", "graph")]
     print(f"[6 times path] {card} | v2_93 bf16 720p: S=1 StreamDriver "
           f"{st['net']['p50_ms']:.3f} ms/frame p50 of dispatch + readback "
           f"(p95 {st['net']['p95_ms']:.3f}; dispatch p50 "
@@ -802,11 +962,17 @@ def phase_times(card: str, gen: torch.Generator, dev, engine, driver, clips,
           f"{st['readback']['p50_ms']:.3f}), {clip_ms:.3f} ms/frame over the "
           f"whole clip incl. crop; S={S} StreamEngine.stabilize_clip "
           f"{s4_fps:.2f} frames/s (upload included)")
-    print(f"[6 profile S=1] {card} | wall {wall:.3f} ms/frame unprofiled "
-          f"({wall_prof:.3f} under the profiler), kernels {busy:.3f} ms/frame, "
-          f"device idle {100 * (1 - busy / wall):.1f}% of the unprofiled wall, "
-          f"{ops:.2f} device operations (kernels, copies, fills) per frame, "
-          f"top kernels (name, ms/frame, launches/frame): {top}")
+    for mode, (wall, p50, wall_prof, busy, ops, host, per_frame, top) in prof:
+        print(f"[6 profile S=1 {mode}] {card} | wall {wall:.3f} ms/frame mean, p50 "
+              f"{p50:.3f} unprofiled ({wall_prof:.3f} under the profiler), kernels "
+              f"{busy:.3f} ms/frame, device idle {100 * (1 - busy / wall):.1f}% of the "
+              f"unprofiled wall, {ops:.2f} device operations (kernels, copies, fills, "
+              f"in a graph or not) and {host:.2f} host launches (runtime calls queueing "
+              f"device work) per frame, per frame in the trace {per_frame}, top kernels "
+              f"(name, ms/frame, launches/frame): {top}")
+    for mode, res in prof:
+        check(res[6] == {"warp_mesh_kernel": 1.0, "warp_uint8_kernel": 1.0},
+              f"the profiled {mode} steps show K2m and K1 {res[6]} per frame")
     rows = [kernel_row(name, replaces, launches[name], errs[name], timed, label)
             for name, label, replaces in (
                 ("warp_mesh", "S=1", "stabnet_tpu/ops/pallas_warp.py:469"),
@@ -1298,18 +1464,18 @@ def smooth_pair(rng: np.random.RandomState, H: int, W: int, dx: float, dy: float
 
 
 def device_ops(fn):
-    """One call of `fn` under torch.profiler (CUDA activity): the device
-    operations (kernels, copies, fills) it ran and their summed time, ms."""
+    """One call of `fn` under torch.profiler (CUDA activity alone: the CPU
+    activity's per-operator events would cost seconds on an eager flow):
+    the device operations (kernels, copies, fills) it ran, their summed time
+    in ms, and the host launches that queued them (`profile_counts`; the
+    runtime calls come with the CUDA activity)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    return (sum(e.count for e in events),
-            sum(e.self_device_time_total for e in events) / 1e3)
+    return profile_counts(prof, 1)[:3]
 
 
 def phase_flow(card: str, gen: torch.Generator, dev, clips: np.ndarray):
@@ -1361,34 +1527,66 @@ def phase_flow(card: str, gen: torch.Generator, dev, clips: np.ndarray):
           f"library F.grid_sample (border) {t['library_ms']:.5f} ms, bound "
           f"{t['bound_ms'] * 1e3:.3f} us ({nbytes} B, {t['bound_by']})")
 
-    # tvl1_flow at the training shape on consecutive frames of the clip.
-    color = torch.from_numpy(clips[0, :B + 1]).to(dev).permute(0, 3, 1, 2)
-    gray = gray_from_color(color, (H, W))
+    # tvl1_flow at the training shape on consecutive frames of the clip, and
+    # at the metrics' (32 pairs at 144x256, fine_iters 100): the graph (its
+    # first call captures it, eagerly) against the eager flow, torch.equal,
+    # then each timed both ways.
+    from stabnet_tpu_torch.eval.metrics import _EVAL_CHUNK, _FINE_ITERS
+    from stabnet_tpu_torch.ops import flow as flow_ops
+
+    color = torch.from_numpy(clips[0, :_EVAL_CHUNK + 1]).to(dev).permute(0, 3, 1, 2)
+    gray = gray_from_color(color[:B + 1], (H, W))
     i0, i1 = gray[:-1].contiguous(), gray[1:].contiguous()
-    u = tvl1_flow(i0, i1)
-    torch.cuda.synchronize()
-    cuda_warp.reset_launch_counts()
-    u = tvl1_flow(i0, i1)
-    torch.cuda.synchronize()
-    per_call = launch_counts()
-    expected = {k: 0 for k in per_call} | {"bilinear_sample": 20}
-    check(per_call == expected, f"tvl1_flow launches {per_call}, expected {expected}")
-    check(tuple(u.shape) == (B, H, W, 2) and bool(torch.isfinite(u).all()),
-          f"tvl1_flow output {tuple(u.shape)}, finite {bool(torch.isfinite(u).all())}")
-    walls = []
-    for _ in range(3):
+    mgray = gray_from_color(color, (144, 256))
+    m0, m1 = mgray[:-1].contiguous(), mgray[1:].contiguous()
+    rows = []
+    for what, a, b, kw in (("training", i0, i1, {}),
+                           ("metrics", m0, m1, {"fine_iters": _FINE_ITERS})):
+        u = tvl1_flow(a, b, **kw)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        tvl1_flow(i0, i1)
+        cuda_warp.reset_launch_counts()
+        u = tvl1_flow(a, b, **kw)
         torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    n_ops, busy = device_ops(lambda: tvl1_flow(i0, i1))
-    flow_ms = float(np.median(walls))
-    print(f"[11 flow] {card} | tvl1_flow ({B}, {H}, {W}), fine_iters 40 (1,700 "
-          f"primal-dual iterations): launches per call {per_call}; {flow_ms:.3f} ms per "
-          f"call (median of 3, synchronized; {[round(w, 3) for w in walls]}); "
-          f"{n_ops} device operations per call, kernels {busy:.3f} ms, device idle "
-          f"{100 * (1 - busy / flow_ms):.1f}% of the wall")
+        launches = launch_counts()
+        expected = {k: 0 for k in launches} | {"bilinear_sample": 20}
+        check(launches == expected, f"tvl1_flow {what} launches per replay {launches}, "
+                                    f"expected {expected}")
+        check(tuple(u.shape) == tuple(a.shape) + (2,) and bool(torch.isfinite(u).all()),
+              f"tvl1_flow output {tuple(u.shape)}, finite {bool(torch.isfinite(u).all())}")
+        walls = {"graph": [], "eager": []}
+        for mode in ("graph", "eager", "graph"):
+            fn = tvl1_flow if mode == "graph" else flow_ops.tvl1_flow_eager
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = fn(a, b, **kw)
+            torch.cuda.synchronize()
+            walls[mode].append((time.perf_counter() - t0) * 1e3)
+            if mode == "eager":
+                check(torch.equal(got, u), f"tvl1_flow {what}: the graph differs from eager")
+        cap = [st for st in flow_ops.GRAPHS.stats() if st["shapes"][0] == tuple(a.shape)][0]
+        # The eager call's operations are profiled at the training shape only
+        # (the profiler's bookkeeping of 85k operations costs seconds).
+        ops = {mode: device_ops(lambda: (tvl1_flow if mode == "graph" else
+                                         flow_ops.tvl1_flow_eager)(a, b, **kw))
+               for mode in (("graph", "eager") if what == "training" else ("graph",))}
+        rows.append((what, tuple(a.shape), kw, walls, cap, ops))
+        if what == "training":
+            per_call = launches
+    for what, shape, kw, walls, cap, ops in rows:
+        g_ms, e_ms = float(np.median(walls["graph"])), walls["eager"][0]
+        e_ops = ops.get("eager", (float("nan"),) * 3)
+        host = (f"{ops['graph'][2]:.0f} / {e_ops[2]:.0f}" if ops["graph"][2] else
+                "not measured (the trace holds no runtime calls)")
+        print(f"[11 flow {what}] {card} | tvl1_flow {shape} {kw or 'fine_iters 40'}: the "
+              f"captured graph torch.equal the eager flow; launches per replay K2 20; graph "
+              f"{[round(w, 3) for w in walls['graph']]} ms per call, eager {e_ms:.3f} ms "
+              f"({e_ms / g_ms:.2f}x); capture and instantiation {cap['capture_s']:.3f} s "
+              f"after an eager first call of {cap['warmup_s']:.3f} s, pool "
+              f"{cap['pool_bytes'] / 2 ** 20:.1f} MB; per call graph / eager (nan: not "
+              f"profiled): device operations {ops['graph'][0]:.0f} / {e_ops[0]:.0f}, kernels "
+              f"{ops['graph'][1]:.3f} / {e_ops[1]:.3f} ms, host launches {host}; device idle "
+              f"{100 * (1 - ops['graph'][1] / g_ms):.1f}% / {100 * (1 - e_ops[1] / e_ms):.1f}%"
+              f" of the wall")
 
     # Card against CPU in f32, two translated smooth pairs at (2, 96, 128).
     rng = np.random.RandomState(3)
@@ -1578,9 +1776,11 @@ def stage_percentiles(res) -> dict:
     return {"p50": st["p50_ms"], "p90": st["p90_ms"]}
 
 
-def phase_serving_modes(card: str, dev, engine, clips: np.ndarray):
-    """The driver's serving modes on phase 4's engine and clips.  Returns
-    the launch counts of the chunked batch (K1 and K2m once per step)."""
+def phase_serving_modes(card: str, dev, engine, clips: np.ndarray, eager1: np.ndarray):
+    """The driver's serving modes on phase 4's engine and clips (its graphs);
+    the S=1 driver, sync and pipelined, against phase 4's eager frames
+    `eager1`.  Returns the launch counts of the chunked batch (K1 and K2m
+    once per step)."""
     from stabnet_tpu_torch.config import V2_93
     from stabnet_tpu_torch.data.synthetic import make_video
     from stabnet_tpu_torch.ops import cuda_warp, max_clear_rect, max_clear_rect_plain
@@ -1605,11 +1805,12 @@ def phase_serving_modes(card: str, dev, engine, clips: np.ndarray):
         runs.setdefault(name, []).append((res, wall))
     for (a, _), (b, _) in zip(runs["sync"], runs["pipelined"]):
         same(a, b, "pipelined vs sync")
+        check(np.array_equal(a.frames[1:], eager1), "sync driver (graphs) vs eager")
     lat = {name: [dict(stage_percentiles(r), wall=w) for r, w in rs]
            for name, rs in runs.items()}
     print(f"[14 pipelined] {card} | v2_93 bf16 720p S=1 T={T}, device gray, runs in "
           f"turns sync, pipelined, sync, pipelined: frames, black map and crop equal bit "
-          f"for bit; per-frame net (dispatch + readback) ms p50/p90 and wall ms/frame "
+          f"for bit, and the frames the eager steps' (phase 4); per-frame net (dispatch + readback) ms p50/p90 and wall ms/frame "
           f"(whole clip incl. crop): "
           + "; ".join(f"{n} " + ", ".join(f"{d['p50']:.3f}/{d['p90']:.3f} wall {d['wall']:.3f}"
                                           for d in ds) for n, ds in lat.items()))
@@ -1836,7 +2037,7 @@ def phase_weights_in(card: str, dev, clips: np.ndarray, tmp: str, data: str):
 # --- export, data parallelism and sharded serving ----------------------------
 
 def phase_export(card: str, dev, engine, clips: np.ndarray):
-    """The serving step exported at S=1 and, with a 4-frame segment, at
+    """The serving step exported at S=1 and, with a 2-frame segment, at
     S=4; loaded from bytes and served against the live engine.  Returns the
     launches of the exported S=1 clip and of the exported 4-clip batch."""
     from stabnet_tpu_torch.ops import cuda_warp
@@ -1845,7 +2046,7 @@ def phase_export(card: str, dev, engine, clips: np.ndarray):
                                                  export_stream_step, load_artifact,
                                                  save_artifact)
 
-    cfg, T, S, K = engine.cfg, clips.shape[1], clips.shape[0], 4
+    cfg, T, S, K = engine.cfg, clips.shape[1], clips.shape[0], 2
     zero = {k: 0 for k in launch_counts()}
     t0 = time.perf_counter()
     step1 = export_stream_step(engine, CLIP_HW, streams=1)
@@ -1896,8 +2097,9 @@ def phase_export(card: str, dev, engine, clips: np.ndarray):
     same(got, live.stabilize_batch(list(clips), chunk=K), "exported segment vs live chunked batch")
     ops = {}
     for name, e in (("live", engine), ("exported", served)):
-        wall, _, busy, per_frame, _ = profile_path(e, clips[0], frames=20, device_gray=False)
-        ops[name] = (wall, busy, per_frame)
+        wall, _, _, busy, per_frame, host, _, _ = profile_path(e, clips[0], frames=20,
+                                                               device_gray=False)
+        ops[name] = (wall, busy, per_frame, host)
     lat = {n: ", ".join(f"{d['p50']:.3f}/{d['p90']:.3f}"
                         for d in (stage_percentiles(r) for r, _ in rs))
            for n, rs in runs.items()}
@@ -1911,7 +2113,7 @@ def phase_export(card: str, dev, engine, clips: np.ndarray):
           f"live, exported, exported, live: live {lat['live']}, exported {lat['exported']}; "
           f"host grays, 20 frames: " + "; ".join(
               f"{n} wall {w:.3f} ms/frame, kernels {b:.3f} ms/frame, device operations "
-              f"{o:.1f}/frame" for n, (w, b, o) in ops.items()))
+              f"{o:.1f}/frame, host launches {h:.1f}/frame" for n, (w, b, o, h) in ops.items()))
     del served, served4
     return runs["exported"][0][1], batch_launches
 
@@ -1941,7 +2143,7 @@ def phase_export_platforms(card: str, dev, engine, clips: np.ndarray, tmp: str):
     from stabnet_tpu_torch.stream.export import (ExportedEngine, _load_program,
                                                  load_artifact, select_program)
 
-    cfg, T, T_CPU = engine.cfg, clips.shape[1], 4
+    cfg, T, T_CPU = engine.cfg, clips.shape[1], 2
     zero = {k: 0 for k in launch_counts()}
     want = zero | {"warp_mesh": T - 1, "warp_uint8_cf_lowres": T - 1}
     live, live_launches = serve_clip(engine, clips[0])
@@ -2017,28 +2219,56 @@ def dp_rank(mode: str, argv) -> int:
     return 0
 
 
-def run_ranks(nproc, mode: str, argv, timeout: int = 300):
-    """`argv` through the CLI in `nproc` ranks under torch.distributed.run
-    (nproc None: one process without a launcher); returns each rank's
-    launches, the wall seconds and the processes' standard error."""
+def free_ports(n: int):
+    """`n` distinct free TCP ports on localhost (held open together while
+    they are chosen)."""
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("localhost", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def start_ranks(nproc, mode: str, argv, port=None):
+    """Start `argv` through the CLI in `nproc` ranks under
+    torch.distributed.run at `port` (nproc None: one process without a
+    launcher); `finish_ranks` waits for it."""
     here = os.path.abspath(__file__)
     cmd = [sys.executable, here, DP_RANK, mode, *argv]
     if nproc is not None:
-        with socket.socket() as s:
-            s.bind(("localhost", 0))
-            port = s.getsockname()[1]
+        port = port or free_ports(1)[0]
         cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(nproc),
                "--master-addr", "localhost", "--master-port", str(port), here, DP_RANK, mode,
                *argv]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout,
-                          cwd=os.path.dirname(here))
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=os.path.dirname(here))
+    return cmd, proc, time.perf_counter()
+
+
+def finish_ranks(started, timeout: int = 300):
+    """Wait for `start_ranks`' processes; returns each rank's launches, the
+    wall seconds and the processes' standard error."""
+    cmd, proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
     wall = time.perf_counter() - t0
     check(proc.returncode == 0, f"{' '.join(cmd[:8])}: exit {proc.returncode}\n"
-          f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-    ranks = [json.loads(ln[len("LAUNCHES "):]) for ln in proc.stdout.splitlines()
+          f"{out[-3000:]}\n{err[-3000:]}")
+    ranks = [json.loads(ln[len("LAUNCHES "):]) for ln in out.splitlines()
              if ln.startswith("LAUNCHES ")]
-    return sorted(ranks, key=lambda r: r.pop("rank")), wall, proc.stderr
+    return sorted(ranks, key=lambda r: r.pop("rank")), wall, err
+
+
+def run_ranks(nproc, mode: str, argv, timeout: int = 300):
+    """`start_ranks` then `finish_ranks`."""
+    return finish_ranks(start_ranks(nproc, mode, argv), timeout)
 
 
 def logged(log_dir: str):
@@ -2051,7 +2281,8 @@ def phase_data_parallel(card: str, dev, tmp: str, data: str):
     (a) one NCCL rank against the plain run, v2_93 bf16 batch 10, bit for
     bit; (b) two gloo ranks on the one card, global batch 10, against one
     process on the merged batch, in f32 (TF32 off), within the CPU test's
-    bound.  Returns the launches of one rank of (b)."""
+    bound.  The plain run, the NCCL rank and the gloo ranks run at once.
+    Returns the launches of one rank of (b)."""
     from stabnet_tpu_torch.data import augment
     from stabnet_tpu_torch.data.pipeline import batch_iterator, ensure_flow
     from stabnet_tpu_torch.parallel import form_global_batch
@@ -2068,16 +2299,26 @@ def phase_data_parallel(card: str, dev, tmp: str, data: str):
         return base + ["--model-dir", os.path.join(tmp, name, "models"),
                        "--log-dir", os.path.join(tmp, name, "log"), *extra]
 
-    out = {}
-    for name, nproc, mode, extra in (
-            ("plain", None, "det", ()),
+    # The three runs share nothing but the card, so they run at once; each
+    # compares by values (cuDNN's deterministic algorithms, or a bound).
+    runs = (("plain", None, "det", ()),
             ("nccl1", 1, "det", ("--data-parallel",)),
-            ("gloo2", 2, "f32", ("--data-parallel", "--set",
-                                 "compute_dtype=float32"))):
-        ranks, wall, _ = run_ranks(nproc, mode, args(name, *extra))
-        check(ranks == [per_rank] * (nproc or 1),
-              f"{name}: launches per rank {ranks}, expected {per_rank}")
-        out[name] = (logged(os.path.join(tmp, name, "log")), wall)
+            ("gloo2", 2, "f32", ("--data-parallel", "--set", "compute_dtype=float32")))
+    ports = free_ports(len(runs))
+    started = {}
+    try:
+        for (name, nproc, mode, extra), port in zip(runs, ports):
+            started[name] = start_ranks(nproc, mode, args(name, *extra), port)
+        out = {}
+        for name, nproc, _, _ in runs:
+            ranks, wall, _ = finish_ranks(started.pop(name))
+            check(ranks == [per_rank] * (nproc or 1),
+                  f"{name}: launches per rank {ranks}, expected {per_rank}")
+            out[name] = (logged(os.path.join(tmp, name, "log")), wall)
+    finally:
+        for _, proc, _ in started.values():
+            proc.kill()
+            proc.communicate()
     keys = [k for k in out["plain"][0][0] if not k.endswith("_ms")]
     vals = {n: [[r[k] for k in keys] for r in rows] for n, (rows, _) in out.items()}
     check(vals["nccl1"] == vals["plain"], "one NCCL rank differs from the plain run: "
@@ -2109,7 +2350,8 @@ def phase_data_parallel(card: str, dev, tmp: str, data: str):
           f"shards, {steps} steps, launches per rank {per_rank}: (a) v2_93 bf16 batch 10, "
           f"one NCCL rank under torch.distributed.run equal to the plain run bit for bit "
           f"(losses {[r['total'] for r in out['plain'][0]]}), step ms plain {ms['plain']}, NCCL rank {ms['nccl1']}, command wall "
-          f"{out['plain'][1]:.1f} and {out['nccl1'][1]:.1f} s; (b) f32 TF32 off, two gloo "
+          f"{out['plain'][1]:.1f} and {out['nccl1'][1]:.1f} s, all three runs at once; "
+          f"(b) f32 TF32 off, two gloo "
           f"ranks on the one card (global batch 10, 5 each): losses {got} against one "
           f"process on the merged batch {want}, max rel {rel:.3g} (need <= 3.4e-3), step ms "
           f"rank 0 {ms['gloo2']}, one process {[round(v, 3) for v in step_ms]}, command "
@@ -2125,6 +2367,7 @@ def phase_sharded(card: str, dev, engine, clips: np.ndarray):
     launches."""
     from stabnet_tpu_torch.ops import cuda_warp
     from stabnet_tpu_torch.stream import DeployOptions, StreamDriver
+    from stabnet_tpu_torch.stream.engine import init_state, scan_frames
 
     cfg, (S, T) = engine.cfg, clips.shape[:2]
     grays = host_grays(clips, cfg)
@@ -2139,11 +2382,18 @@ def phase_sharded(card: str, dev, engine, clips: np.ndarray):
                                        "warp_uint8_cf_lowres": 2 * (T - 1)}
     check(launches == want, f"sharded launches {launches}, expected {want}")
     half = S // 2
+    g, c = torch.from_numpy(grays).to(dev), torch.from_numpy(clips).to(dev)
     for lo in (0, half):
         alone, st = engine.stabilize_clip(grays[lo: lo + half], clips[lo: lo + half])
         check(torch.equal(warped[lo: lo + half], alone)
               and torch.equal(state.all_black[lo: lo + half], st.all_black),
               f"shard {lo // half} differs from its own run at S={half}")
+        part = slice(lo, lo + half)
+        ww, wst = scan_frames(engine.model, init_state(g[part, 0], cfg), g[part, 1:],
+                              c[part, 1:], cfg)
+        held_equal(f"shard {lo // half}", warped[part],
+                   state._replace(frames=state.frames[part], masks=state.masks[part],
+                                  all_black=state.all_black[part]), ww, wst)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     driver = StreamDriver(engine, DeployOptions())
@@ -2155,8 +2405,9 @@ def phase_sharded(card: str, dev, engine, clips: np.ndarray):
     print(f"[18 sharded] {card} | {cfg.name} {cfg.compute_dtype} {CLIP_HW[0]}p, {S} clips "
           f"of {T} frames: "
           f"stabilize_clips_sharded over two replicas on cuda:0 (interleaved steps) in "
-          f"{t1 - t0:.3f} s, launches {launches}, each shard bit for bit its own run at "
-          f"S={half} ({t2 - t1:.3f} s for both); stabilize_batch(sharded=True) over the "
+          f"{t1 - t0:.3f} s (a graph per replica), launches {launches}, each shard bit "
+          f"for bit its own run at S={half} ({t2 - t1:.3f} s for both) and the eager "
+          f"scan_frames there (frames, ring, all_black, crop); stabilize_batch(sharded=True) over the "
           f"card's one replica equal to the unsharded batch bit for bit, "
           f"{a[0].fps_net:.2f} and {b[0].fps_net:.2f} frames/s")
     return launches
@@ -2400,7 +2651,7 @@ def phase_bench(card: str):
 # --- the quality gate and the endurance run --------------------------------
 
 GATE = "_gate"   # argv[1] of the quality gate's process that phase 22 starts
-GATE_ARGS = ["--steps", "200", "--clips", "4", "--frames", "40"]
+GATE_ARGS = ["--steps", "100", "--clips", "2", "--frames", "40"]
 
 
 def gate_process(argv) -> int:
@@ -2439,7 +2690,7 @@ def gate_process(argv) -> int:
 
 def phase_quality_gate(card: str, tmp: str):
     """scripts/torch_quality_gate.py at a short schedule in a process of its
-    own: exit 0 or 1 as its report says (a pass is not required at 200
+    own: exit 0 or 1 as its report says (a pass is not required at 100
     steps), every check of the JAX gate present, and the launches: per
     training step K2 2, K4 1 and K6b 1; per served frame K2m and K1 once
     (each of the two batches: trained and random weights); per scored clip
@@ -2488,38 +2739,52 @@ def phase_quality_gate(card: str, tmp: str):
 
 
 ENDURANCE_ARGS = ["--config", "v2_93", "--target", "4", "--segment", "2", "--score-every",
-                  "2", "--clips", "1", "--frames", "20", "--examples", "20"]
+                  "4", "--clips", "1", "--frames", "20", "--examples", "10"]
 
 
-def phase_endurance(card: str, tmp: str):
-    """scripts/torch_endurance.py at v2_93 over the port's CLI: two training
-    segments of 2 steps (the second through --restore), scored after each on
-    one 20-frame clip; its verdict record and scores.jsonl."""
+def start_endurance(tmp: str):
+    """Start scripts/torch_endurance.py at v2_93 over the port's CLI (its
+    own processes; phase 23), to run beside phase 22's gate."""
     here = os.path.dirname(os.path.abspath(__file__))
     work = os.path.join(tmp, "endurance")
     cmd = [sys.executable, os.path.join(here, "scripts", "torch_endurance.py"),
            *ENDURANCE_ARGS, "--workdir", work]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900, cwd=here)
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=here)
+    return work, proc, time.perf_counter()
+
+
+def phase_endurance(card: str, started):
+    """Phase 23, started by `start_endurance`: two training segments of 2
+    steps (the second through --restore) on 10 examples, scored at the end
+    on one 20-frame clip; its verdict record and scores.jsonl."""
+    work, proc, t0 = started
+    try:
+        stdout, stderr = proc.communicate(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
     wall = time.perf_counter() - t0
     log = os.path.join(work, "endurance.log")
     tail = open(log).read()[-4000:] if os.path.exists(log) else ""
     check(proc.returncode in (0, 1), f"endurance exit {proc.returncode}:\n"
-          f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}\n{tail}")
-    verdict = json.loads(proc.stdout.strip().splitlines()[-1])
+          f"{stdout[-2000:]}\n{stderr[-2000:]}\n{tail}")
+    verdict = json.loads(stdout.strip().splitlines()[-1])
     check(list(verdict["checks"]) == ["trend_up", "beats_input_at_end",
                                       "no_post_decay_regression", "distortion_floor"]
-          and [r["iter"] for r in verdict["scores"]] == [2, 4]
+          and [r["iter"] for r in verdict["scores"]] == [4]
           and proc.returncode == (0 if verdict["pass"] else 1),
           f"endurance verdict {verdict}")
     with open(os.path.join(work, "scores.jsonl")) as f:
         records = [json.loads(ln) for ln in f]
-    check([r["iter"] for r in records] == [2, 4]
+    check([r["iter"] for r in records] == [4]
           and all(0 < r["mean_stability"] <= 1 + 1e-6 for r in records),
           f"endurance scores {records}")
-    segments = [ln for ln in proc.stdout.splitlines() if " steps in " in ln]
+    segments = [ln for ln in stdout.splitlines() if " steps in " in ln]
     print(f"[23 endurance] {card} | scripts/torch_endurance.py {' '.join(ENDURANCE_ARGS)}, "
-          f"{wall:.1f} s: verdict {json.dumps(verdict)}; {'; '.join(segments)}")
+          f"{wall:.1f} s from its start, beside phase 22: verdict {json.dumps(verdict)}; "
+          f"{'; '.join(segments)}")
 
 
 def timed(number: int, fn, *args):
@@ -2549,7 +2814,7 @@ def main() -> int:
     card = timed(1, phase_device)
     errs = {**timed(2, phase_k2, gen, dev), **timed(3, phase_k1, gen, dev)}
     clips = make_clips(4, T_CLIP, CLIP_HW)
-    engine, driver, grays, launches = timed(4, phase_path, clips, dev)
+    engine, driver, grays, launches, eager1 = timed(4, phase_path, clips, dev)
     timed(5, phase_card_vs_cpu, clips, dev)
     kernels, timed_ms = timed(6, phase_times, card, gen, dev, engine, driver, clips, grays,
                               launches, errs)
@@ -2557,7 +2822,7 @@ def main() -> int:
     errs["bilinear_sample"] = max(errs["bilinear_sample"], flow_err)
     timed_ms[("bilinear_sample", "(10, 288, 512, 3) edge-inclusive")] = flow_timed
     timed(12, phase_metrics, card, dev, engine, clips)
-    batch_launches = timed(14, phase_serving_modes, card, dev, engine, clips)
+    batch_launches = timed(14, phase_serving_modes, card, dev, engine, clips, eager1)
     export_launches, export_batch_launches = timed(16, phase_export, card, dev, engine, clips)
     with tempfile.TemporaryDirectory() as tmp:
         moved_launches = timed(16, phase_export_platforms, card, dev, engine, clips, tmp)
@@ -2576,8 +2841,16 @@ def main() -> int:
         vis_launches = timed(20, phase_debug_vis, card, tmp, data)
     bench_launches = timed(21, phase_bench, card)
     with tempfile.TemporaryDirectory() as tmp:
-        gate_launches = timed(22, phase_quality_gate, card, tmp)
-        timed(23, phase_endurance, card, tmp)
+        # Phase 23's processes run beside phase 22's (both only report their
+        # seconds); phase 23's own seconds are what is left after 22.
+        endurance = start_endurance(tmp)
+        try:
+            gate_launches = timed(22, phase_quality_gate, card, tmp)
+        except BaseException:
+            endurance[1].kill()
+            endurance[1].communicate()
+            raise
+        timed(23, phase_endurance, card, endurance)
     # K2, K4 and K6b run on the training path: their launches are a
     # segment's, at the shapes of the K6 forward and of the backwards.
     kernels.insert(0, kernel_row("bilinear_sample", "stabnet_tpu/ops/pallas_warp.py:469",

@@ -22,7 +22,9 @@ at a time: wall, upload, dispatch, compute+readback, and the device-resident
 step against a fence floor) and pipelined.  Inputs go to the device before
 each timed window; a window ends with a scalar read-back of a strided sum.
 On the card the serving step launches kernels K1 and K2m of `csrc/warp.cu`
-once per frame and refine pass; a failed build or launch fails the run.
+once per frame and refine pass, inside the engine's captured CUDA graph
+(one replay per frame; launches counted per replay); a failed build,
+capture or launch fails the run.
 
 Where it differs from the JAX bench, by design:
 
@@ -263,8 +265,9 @@ def fence(warped) -> int:
 def measure(run, gray, color, repeats: int, mark=None) -> float:
     """Frames/s of `run(gray, color)` (whole clips: frame 0 warms the
     history, frames 1..T-1 are processed) over `repeats` runs after one
-    warm-up run, which takes the kernels' first launches and cuDNN's
-    algorithm search out of the window.  `gray` and `color` are on their
+    warm-up run, which takes the kernels' first launches, cuDNN's
+    algorithm search and the capture of the engine's CUDA graph (its first
+    frame runs eagerly, the rest replay it) out of the window.  `gray` and `color` are on their
     devices already: a tensor each, or a list of per-card shards."""
     mark = mark or (lambda phase: None)
     w, _ = run(gray, color)

@@ -30,7 +30,11 @@ tensors and only there; on CUDA tensors the kernel launches or raises, and
 nothing falls back.  The public functions below check their arguments and
 call the op.  Every launch adds one to the public function's `launches`
 attribute, so a run can show that it went through the kernel, the ops of an
-exported program included.  The kernels reproduce the plain versions'
+exported program included.  A launch made while its thread captures a CUDA
+graph runs nothing: it goes into the capture's record instead
+(`recording_launches`), which the graph cache (utils/graphs.py) adds to the
+counts once per replay (`add_launches`), so a count is always the launches
+that ran.  The kernels reproduce the plain versions'
 arithmetic operation for operation, so the two agree bit for bit (see the
 notes in csrc/).
 
@@ -41,9 +45,11 @@ cannot silently stop training on the card.  Gradients go through K5 and K6.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
-from typing import Tuple
+import threading
+from typing import Dict, Iterator, Tuple
 
 import torch
 
@@ -111,6 +117,38 @@ def _on_card(*tensors: torch.Tensor) -> None:
     (the dispatcher picks the CUDA implementation if any of them does)."""
     if _on_cpu(*tensors):
         raise ValueError("a CUDA kernel was handed CPU tensors")
+
+
+_capture = threading.local()
+
+
+def _launched(kernel) -> None:
+    """Count one launch of `kernel` (a public wrapper): on its `launches`,
+    or, while this thread records a graph capture, in the capture's record."""
+    record = getattr(_capture, "record", None)
+    if record is None:
+        kernel.launches += 1
+    else:
+        record[kernel] = record.get(kernel, 0) + 1
+
+
+@contextlib.contextmanager
+def recording_launches() -> Iterator[Dict[object, int]]:
+    """Within: this thread's launches go into the yielded record {wrapper:
+    launches}, not into the counts (a CUDA graph capture launches nothing;
+    other threads count as before)."""
+    outer = getattr(_capture, "record", None)
+    _capture.record = record = {}
+    try:
+        yield record
+    finally:
+        _capture.record = outer
+
+
+def add_launches(record: Dict[object, int]) -> None:
+    """Add a capture's record to the counts: one replay of its graph."""
+    for kernel, n in record.items():
+        kernel.launches += n
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -235,7 +273,7 @@ def _bilinear_sample_cuda(im, x_ndc, y_ndc, strict_edge):
             im.data_ptr(), x_ndc.data_ptr(), y_ndc.data_ptr(), out.data_ptr(),
             B, H, W, C, Ho, Wo, int(strict_edge), stream)
     _launch_check(err, "bilinear_sample")
-    bilinear_sample.launches += 1
+    _launched(bilinear_sample)
     return out
 
 
@@ -359,7 +397,7 @@ def _warp_mesh_cuda(im, Hs, gx, gy, cell_col, cell_row):
                  f"warp_mesh: bad table {tuple(t.shape)} {t.dtype} for {H} x {W} frames")
     res = _launch_warp_mesh(im, Hs, (gx, gy, cell_col, cell_row),
                             warp_mesh_pix(B, H, W, im.stride(2)))
-    warp_mesh.launches += 1
+    _launched(warp_mesh)
     return res
 
 
@@ -461,7 +499,7 @@ def _warp_uint8_cf_cuda(imc, x_ndc, y_ndc):
             imc.data_ptr(), x_ndc.data_ptr(), y_ndc.data_ptr(), out.data_ptr(),
             B, C, H, W, Ho, Wo, stream)
     _launch_check(err, "warp_uint8_cf")
-    warp_uint8_cf.launches += 1
+    _launched(warp_uint8_cf)
     return out
 
 
@@ -553,7 +591,7 @@ def _warp_uint8_cf_lowres_cuda(imc, x_ndc_lr, y_ndc_lr, out_hw):
             out.data_ptr(),
             B, C, H, W, h, w, Ho, Wo, stream)
     _launch_check(err, "warp_uint8_cf_lowres")
-    warp_uint8_cf_lowres.launches += 1
+    _launched(warp_uint8_cf_lowres)
     return out
 
 
@@ -654,7 +692,7 @@ def _bilinear_splat_cuda(g, x_ndc, y_ndc, im_hw):
             max_bits.data_ptr(), out.data_ptr(), B, Ho, Wo, C, H, W,
             _splat_head(Ho, Wo), stream)
     _launch_check(err, "bilinear_splat")
-    bilinear_splat.launches += 1
+    _launched(bilinear_splat)
     return out
 
 
@@ -739,7 +777,7 @@ def _sample_map_grad_cuda(im, x_ndc, y_ndc, g):
             im.data_ptr(), x_ndc.data_ptr(), y_ndc.data_ptr(), g.data_ptr(),
             gx.data_ptr(), gy.data_ptr(), B, H, W, C, Ho, Wo, stream)
     _launch_check(err, "sample_map_grad")
-    sample_map_grad.launches += 1
+    _launched(sample_map_grad)
     return gx, gy
 
 

@@ -14,7 +14,9 @@ warp samples the second image and its gradient, three channels, through
 kernel K2 in its edge-inclusive mode (`cuda_warp.bilinear_sample` with
 `strict_edge=False`, the Pallas sampler's `strict_edge=False` in the JAX
 package): one launch per level and warp on CUDA tensors, its plain version
-on CPU tensors.
+on CPU tensors.  On the card the whole pyramid runs as one captured CUDA
+graph (`tvl1_flow`; `tvl1_flow_eager` is the same arithmetic issued one
+operation at a time, the CPU path).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 
 from stabnet_tpu_torch.ops import cuda_warp
 from stabnet_tpu_torch.ops.resize import resize_bilinear_bhw
+from stabnet_tpu_torch.utils.graphs import GraphCache
 
 
 def _over(t: torch.Tensor, n: int) -> torch.Tensor:
@@ -134,11 +137,43 @@ def _tvl1_level(i0: torch.Tensor, i1: torch.Tensor, u: torch.Tensor, *,
     return u
 
 
+# The flow's captured graphs, one per shape and static arguments, for the
+# whole process (as jax.jit's cache is): the training pipeline's thread and
+# the metrics reach them through `tvl1_flow`.
+GRAPHS = GraphCache()
+
+
 def tvl1_flow(i0: torch.Tensor, i1: torch.Tensor, *, num_levels: int = 4,
               num_warps: int = 5, num_iters: int = 100, fine_iters: int = 40,
               tau: float = 0.25, lam: float = 0.15,
               theta: float = 0.3) -> torch.Tensor:
-    """Estimate dense TV-L1 optical flow from i0 to i1.
+    """`tvl1_flow_eager`'s flow (its arguments, its result bit for bit).
+
+    On CUDA tensors it replays the captured CUDA graph of the whole pyramid
+    for (B, H, W) and the other arguments (`GRAPHS`, the counterpart of the
+    JAX package's `jax.jit` with `lax.fori_loop` bodies), captured at the
+    first such call, which runs eagerly; the result is copied out of the
+    graph's buffer.  On CPU tensors it is `tvl1_flow_eager`.
+    """
+    kw = dict(num_levels=num_levels, num_warps=num_warps, num_iters=num_iters,
+              fine_iters=fine_iters, tau=tau, lam=lam, theta=theta)
+    if i0.device.type != "cuda":
+        return tvl1_flow_eager(i0, i1, **kw)
+
+    def fn(a, b):
+        return (tvl1_flow_eager(a, b, **kw),)
+
+    with torch.no_grad(), GRAPHS.lock:
+        (u,) = GRAPHS(("tvl1_flow",) + tuple(kw.items()), fn, (i0, i1), i0.device)
+        return u.clone()
+
+
+def tvl1_flow_eager(i0: torch.Tensor, i1: torch.Tensor, *, num_levels: int = 4,
+                    num_warps: int = 5, num_iters: int = 100, fine_iters: int = 40,
+                    tau: float = 0.25, lam: float = 0.15,
+                    theta: float = 0.3) -> torch.Tensor:
+    """Estimate dense TV-L1 optical flow from i0 to i1, one operation at a
+    time (the CPU path, and the reference the graphs are held to).
 
     Args:
       i0, i1: (B, H, W) grayscale frames on one device; any affine intensity
@@ -153,6 +188,8 @@ def tvl1_flow(i0: torch.Tensor, i1: torch.Tensor, *, num_levels: int = 4,
     Returns:
       (B, H, W, 2) float32 pixel displacement u with i0(p) ~= i1(p + u(p)).
       On CUDA tensors one call launches K2 num_levels * num_warps times.
+      No value goes to the host: the intensity range stays on the device,
+      so the whole call can be captured as one graph.
     """
     B, H, W = i0.shape
     lo = torch.minimum(i0.min(), i1.min())

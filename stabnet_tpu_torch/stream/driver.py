@@ -12,6 +12,12 @@ mosaics, --start-with-stable, and the final accumulated-black maximal crop
   * `stabilize_batch`: many clips as lock-step streams of the engine's scan;
   * `stabilize_stream` / `stabilize_file(stream_chunk=K)`: a stream in
     constant host memory, K frames at a time.
+
+On the card each step is a replay of the engine's captured graph: the host
+frame is copied into the graph's input outside it (through a pinned stage),
+and the step's outputs are copies of the graph's buffers, so a `StepOutput`
+the driver keeps (the input gray, a queued read-back) stays valid after
+the next step, as a JAX call's new arrays do.
 """
 
 from __future__ import annotations
