@@ -50,11 +50,24 @@ nonzero exit):
      autograd;
   8. the training path: `make-synthetic` 20 v2_93 examples, then `train`
      through the port's CLI at v2_93 bf16 batch 10 for 4 steps with every
-     loss term live, then `--restore` to step 6, launch counts read around
-     each segment;
+     loss term live, then `--restore` to step 6 (the loop's steps replay
+     captured CUDA graphs), launch counts read around each segment (K2 2,
+     K4 1, K6b 1 per step, counted per replay, backwards included) and the
+     wall per iteration between the loop's log lines;
   9. one v2_93 training step, card against CPU, f32 (TF32 off), batch 2;
+     then the compiled step against the eager one, v2_93 f32 batch 2, six
+     steps across every loss gate and a learning-rate step: torch.equal if
+     two eager runs are, else both under deterministic algorithms (or 3x
+     the eager spread where those refuse an operation), exactly one
+     training graph, K2 2, K4 1, K6b 1 per replayed step;
  10. training times: K4 (with each pass's time under torch.profiler) and
-     K6b at their training shapes, and the step;
+     K6b at their training shapes; the v2_93 bf16 batch-10 step with the
+     input pipeline, graph, eager, graph (ms per step, per iteration, the
+     "data" and "step" stage means, peak memory), then back to back on one
+     batch under torch.profiler (wall, kernels, idle share, device
+     operations and host launches per step); the eval graph against
+     eval_step and the augmentation graph against augment_batch (torch.equal),
+     each graph's capture seconds and pool bytes;
  11. TV-L1 flow: K2 in its edge-inclusive mode against its plain version,
      bit for bit, at the pyramid of the training shape, (10, 288, 512, 3)
      down to (10, 32, 64, 3), and at the metrics' pyramid, (32, 144, 256,
@@ -73,8 +86,8 @@ nonzero exit):
      the fit, the spectrum and the singular values on equal inputs;
  13. flow-fed training: phase 8's shards with the flow field stripped,
      `train` refused on them, then `train --compute-flow` through the CLI
-     at v2_93 bf16 batch 10 for 4 steps with the temporal loss live, its
-     launches and time per iteration beside phase 10's;
+     at v2_93 bf16 batch 10 for 12 steps with the temporal loss live, its
+     launches, training seconds and wall per iteration beside phase 10's;
  14. serving modes at v2_93 bf16 720p on phase 4's clips: the S=1 driver
      pipelined against synchronous (bit for bit, per-frame p50 and p90 of
      each, and each equal to phase 4's eager frames); stabilize_batch of clips of 40, 23 and 9 frames at 4 streams,
@@ -148,10 +161,11 @@ nonzero exit):
      at that schedule), every check of the JAX gate present, and the
      launches: per training step K2 2, K4 1, K6b 1; per served frame K1 and
      K2m once; per scored clip 20 K2 per tvl1_flow call and nothing else;
+     its seconds of training;
  23. endurance: scripts/torch_endurance.py at v2_93 (target 4, segments of
      2 in fresh processes, the second through --restore, 10 examples, one
      20-frame clip scored at the end), started beside phase 22: its verdict
-     record and scores.jsonl;
+     record, scores.jsonl and each training segment's seconds;
 and in phase 12 the card-against-CPU gap of fit_homographies split by
 cause (its normal equations summed in float64 on both devices).  Each
 phase prints its seconds ("[N seconds]"), and a line before the kernels
@@ -1141,12 +1155,13 @@ def phase_train_path(tmp: str):
                     "warp_uint8_cf": 0, "bilinear_splat": n, "sample_map_grad": n}
         cuda_warp.reset_launch_counts()
         t0 = time.perf_counter()
-        cli(base + ["--steps", str(steps)] + extra)
+        with IterTimes() as walls:
+            cli(base + ["--steps", str(steps)] + extra)
         torch.cuda.synchronize()
         launches = launch_counts()
         check(launches == expected,
               f"train to step {steps}: launches {launches}, expected {expected}")
-        segments.append((steps, launches, time.perf_counter() - t0))
+        segments.append((steps, launches, time.perf_counter() - t0, walls.ms()))
         done = steps
     check(ckpt.latest_step(model_dir) == 6, f"latest checkpoint {ckpt.latest_step(model_dir)}")
 
@@ -1172,7 +1187,8 @@ def phase_train_path(tmp: str):
     check(all(changed[k] for k in stats), "a BN running statistic did not change")
     print(f"[8 train path] v2_93 bf16 batch 10 through the CLI: make-synthetic 20 "
           f"examples in {make_s:.1f} s; " + "; ".join(
-              f"train to step {st} in {sec:.1f} s, launches {ln}" for st, ln, sec in segments)
+              f"train to step {st} in {sec:.1f} s, launches {ln}, ms per iteration after "
+              f"the first {ms}" for st, ln, sec, ms in segments)
           + f"; checkpoint at step 6; metrics.jsonl steps 0-5, all losses finite "
           f"(step 0 total {train_rows[0]['total']:.6g}, step 5 total "
           f"{train_rows[5]['total']:.6g}); {sum(changed[k] for k in weights)}/"
@@ -1255,9 +1271,117 @@ def phase_train_card_vs_cpu(dev):
           "card and CPU disagree on the training step")
 
 
+# Six steps that cross every loss gate (theta-only at 0-1, black from 2,
+# temporal from 3) and a learning-rate step (at 4).
+GATE_CROSSING = dict(do_theta_only_iter=1, do_black_loss_iter=2, do_temp_loss_iter=3,
+                     step_size=4)
+
+
+def train_run(cfg, batches, dev, compiled: bool):
+    """Six steps from one seeded state, eager (`train_step`) or compiled
+    (`make_train_step`: one captured graph replayed): per step the loss
+    terms, the model's state_dict and Adam's moments, and the state."""
+    from stabnet_tpu_torch.train import Adam, TrainState, make_train_step, train_step
+
+    model = random_model(cfg, 3).to(dev).train()
+    state = TrainState(step=0, model=model, opt=Adam(model.parameters()))
+    step = make_train_step(cfg) if compiled else (lambda s, b: train_step(s, b, cfg))
+    out = []
+    for b in batches:
+        state, aux = step(state, b)
+        out.append(({k: v.clone() for k, v in aux.items()},
+                    {k: v.clone() for k, v in state.model.state_dict().items()},
+                    [t.clone() for t in state.opt.mu + state.opt.nu]))
+    torch.cuda.synchronize()
+    return out, state
+
+
+def run_gap(a, b) -> dict:
+    """The largest gap between two `train_run`s: loss terms relative,
+    parameters and statistics absolute, moments absolute; 0 if equal."""
+    loss = max(abs(float(x[k]) - float(y[k])) / max(abs(float(y[k])), 1e-30)
+               for (x, _, _), (y, _, _) in zip(a, b) for k in x)
+    params = max(float((x[k] - y[k]).abs().max()) for (_, x, _), (_, y, _) in zip(a, b)
+                 for k in x)
+    moments = max(float((x - y).abs().max()) for (_, _, xs), (_, _, ys) in zip(a, b)
+                  for x, y in zip(xs, ys))
+    return {"loss_rel": loss, "params_abs": params, "moments_abs": moments}
+
+
+def phase_train_graph(card: str, dev):
+    """The compiled training step against the eager one: v2_93 f32, batch
+    2, six steps across every gate and a learning-rate step from one seeded
+    state, exactly one captured training graph, K2 2, K4 1 and K6b 1 per
+    replayed step.  The rule: if two eager runs are torch.equal, the graph
+    must equal the eager run; else both run under cuDNN's and torch's
+    deterministic algorithms and must be equal there, the default mode's
+    eager spread reported beside; where deterministic mode cannot run an
+    operation, the graph is held to 3x the eager spread."""
+    from stabnet_tpu_torch.data import augment_batch, make_raw_batch, prepare_raw
+
+    cfg = live_config(compute_dtype="float32", batch_size=2).replace(**GATE_CROSSING)
+    batches = [augment_batch(torch.Generator().manual_seed(s),
+                             {k: torch.from_numpy(v).to(dev) for k, v in
+                              prepare_raw(make_raw_batch(cfg, 2, seed=s)).items()}, cfg)
+               for s in range(6)]
+    e1, _ = train_run(cfg, batches, dev, compiled=False)
+    e2, _ = train_run(cfg, batches, dev, compiled=False)
+    spread = run_gap(e1, e2)
+    rule = "equal" if not any(spread.values()) else "deterministic"
+    if rule == "deterministic":
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True)
+        try:
+            eager, _ = train_run(cfg, batches, dev, compiled=False)
+        except RuntimeError as e:
+            print(f"[9 train graph] deterministic mode refused an operation: {e}")
+            rule, eager = "3x spread", e1
+        finally:
+            torch.backends.cudnn.deterministic = False
+            torch.use_deterministic_algorithms(False)
+    else:
+        eager = e1
+    if rule == "deterministic":
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True)
+    before = launch_counts()
+    try:
+        graph, state = train_run(cfg, batches, dev, compiled=True)
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.use_deterministic_algorithms(False)
+    launches = {k: v - before[k] for k, v in launch_counts().items()}
+    gap = run_gap(graph, eager)
+    if rule == "3x spread":
+        ok = all(gap[k] <= 3 * spread[k] for k in gap)
+    else:
+        ok = not any(gap.values())
+    stats = state.graphs.stats()
+    want = {"bilinear_sample": 12, "warp_mesh": 0, "warp_uint8_cf_lowres": 0,
+            "warp_uint8_cf": 0, "bilinear_splat": 6, "sample_map_grad": 6}
+    temps = [float(r[0]["temp"]) for r in graph]
+    print(f"[9 train graph] {card} | v2_93 f32 batch 2, 6 steps across every gate "
+          f"(temp {temps[0]:.3g} at step 0, {temps[-1]:.6g} at 5) and a learning-rate "
+          f"step: rule {rule!r} (default-mode eager against eager: {spread}); graph against "
+          f"eager {gap}; {len(state.graphs)} training graph(s), {stats[0]['replays']} "
+          f"replays, eager first call {stats[0]['warmup_s']:.3f} s, capture "
+          f"{stats[0]['capture_s']:.3f} s, pool {stats[0]['pool_bytes']} B; launches "
+          f"{launches}; counters step {state.step}/{int(state.step_t)}, Adam "
+          f"{state.opt.count}/{int(state.opt.count_t)}")
+    check(ok, f"the training graph and the eager step differ under rule {rule!r}: {gap}")
+    check(len(state.graphs) == 1 and stats[0]["replays"] == 5,
+          f"training graphs {stats}")
+    check(launches == want, f"graph launches {launches}, expected {want}")
+    check((state.step, int(state.step_t), state.opt.count, int(state.opt.count_t))
+          == (6, 6, 6, 6), "counters")
+    return rule
+
+
 def profile_steps(step, steps: int = 3):
     """Wall time per call of `step` (synchronized) without and with the
-    profiler, and the summed kernel time per call under it."""
+    profiler, and under it per call: the summed kernel time, the device
+    operations and the host launches (`profile_counts`), and the top
+    kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     def run():
@@ -1271,12 +1395,11 @@ def profile_steps(step, steps: int = 3):
     wall = run()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall_prof = run()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kernels) / steps / 1e3
+    ops, busy, host, kernels = profile_counts(prof, steps)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    return wall, wall_prof, busy, [(e.key[:48], round(e.self_device_time_total / steps / 1e3, 3),
-                                    e.count // steps) for e in top]
+    return wall, wall_prof, busy, ops, host, [
+        (e.key[:48], round(e.self_device_time_total / steps / 1e3, 3), e.count // steps)
+        for e in top]
 
 
 def kernel_passes(fn, calls: int = 20):
@@ -1307,7 +1430,7 @@ def phase_train_times(card: str, gen: torch.Generator, dev, data: str):
     and the library's grid sampler; the v2_93 bf16 batch-10 step."""
     from stabnet_tpu_torch.data.pipeline import InputPipeline
     from stabnet_tpu_torch.ops import cuda_warp
-    from stabnet_tpu_torch.train import create_train_state, train_step
+    from stabnet_tpu_torch.train import create_train_state, make_train_step, train_step
     from stabnet_tpu_torch.utils.profiling import StageTimer
 
     bw, f32_peak = peaks(torch.cuda.get_device_name(0))
@@ -1383,43 +1506,92 @@ def phase_train_times(card: str, gen: torch.Generator, dev, data: str):
     base_gib = torch.cuda.memory_allocated() / 2 ** 30
     pipe = InputPipeline(os.path.join(data, "train"), cfg, seed=1, device=dev)
     state = create_train_state(cfg, device=dev, seed=0)
-    timers = StageTimer()
-    step_ms = []
+    steps = {"graph": make_train_step(cfg), "eager": lambda s, b: train_step(s, b, cfg)}
     torch.cuda.reset_peak_memory_stats()
-    for i in range(13):
-        if i == 3:
-            timers.reset()
-            t_window = time.perf_counter()
-        with timers.stage("data"):
-            batch = next(pipe)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with timers.stage("step"):
-            state, aux = train_step(state, batch, cfg)
+    for _ in range(3):           # the first call captures the step, the first batch the augmentation
+        state, aux = steps["graph"](state, next(pipe))
+    torch.cuda.synchronize()
+    warm_gib = torch.cuda.max_memory_allocated() / 2 ** 30 - base_gib
+    windows = []
+    for mode in ("graph", "eager", "graph"):
+        timers, step_ms = StageTimer(), []
+        torch.cuda.reset_peak_memory_stats()
+        t_window = time.perf_counter()
+        for _ in range(10):
+            with timers.stage("data"):
+                batch = next(pipe)
             torch.cuda.synchronize()
-        if i >= 3:
+            t0 = time.perf_counter()
+            with timers.stage("step"):
+                state, aux = steps[mode](state, batch)
+                torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
-    window_s = time.perf_counter() - t_window
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30 - base_gib
-    p50 = float(np.median(step_ms))
-    st = timers.summary()
-    check(math.isfinite(float(aux["total"])), "non-finite loss in the timed steps")
+        window_ms = (time.perf_counter() - t_window) * 1e3 / 10
+        st = timers.summary()
+        windows.append((mode, float(np.median(step_ms)), min(step_ms), max(step_ms),
+                        window_ms, st["data"]["mean_ms"], st["step"]["mean_ms"],
+                        torch.cuda.max_memory_allocated() / 2 ** 30 - base_gib))
+        check(math.isfinite(float(aux["total"])), f"non-finite loss in the {mode} window")
     pipe.close()
-    wall, wall_prof, busy, top = profile_steps(lambda: train_step(state, batch, cfg))
-    print(f"[10 times train step] {card} | v2_93 bf16 batch 10 (20 frames per "
-          f"forward): {p50:.3f} ms/step p50 over 10 synchronized steps after 3 "
-          f"warm-ups (min {min(step_ms):.3f}, max {max(step_ms):.3f}), "
-          f"{cfg.batch_size / p50 * 1e3:.2f} samples/s at the p50; the 10 "
-          f"iterations with their data waits {window_s * 1e3:.1f} ms, "
-          f"{10 * cfg.batch_size / window_s:.2f} samples/s; stages: data mean "
-          f"{st['data']['mean_ms']:.3f} ms (p50 {st['data']['p50_ms']:.3f}), step "
-          f"mean {st['step']['mean_ms']:.3f} ms; peak memory of the training "
-          f"{peak_gib:.2f} GiB above the {base_gib:.2f} GiB held before it")
-    print(f"[10 profile train step] {card} | wall {wall:.3f} ms/step unprofiled "
-          f"({wall_prof:.3f} under the profiler), kernels {busy:.3f} ms/step, device "
-          f"idle {100 * (1 - busy / wall):.1f}% of the unprofiled wall, top kernels "
-          f"(name, ms/step, launches/step): {top}")
-    return timed, window_s * 1e3 / 10
+    check(len(state.graphs) == 1, f"training graphs {state.graphs.stats()}")
+    train_stats, aug_stats = state.graphs.stats()[0], pipe.graphs.stats()
+    check(len(aug_stats) == 1, f"augmentation graphs {aug_stats}")
+    for mode, p50, lo, hi, win, data_ms, stage_ms, peak in windows:
+        print(f"[10 times train step {mode}] {card} | v2_93 bf16 batch 10 (20 frames per "
+              f"forward): {p50:.3f} ms/step p50 over 10 synchronized steps (min {lo:.3f}, "
+              f"max {hi:.3f}), {cfg.batch_size / p50 * 1e3:.2f} samples/s at the p50; the 10 "
+              f"iterations with their data waits {win:.3f} ms per iteration, "
+              f"{cfg.batch_size / win * 1e3:.2f} samples/s; stages: data mean {data_ms:.3f} "
+              f"ms, step mean {stage_ms:.3f} ms; peak memory {peak:.2f} GiB above the "
+              f"{base_gib:.2f} GiB held before the training")
+    profiled = []
+    for mode in ("graph", "eager", "graph"):
+        wall, wall_prof, busy, ops, host, top = profile_steps(
+            lambda: steps[mode](state, batch), steps=5)
+        profiled.append((mode, wall))
+        print(f"[10 profile train step {mode}] {card} | back to back on one batch: wall "
+              f"{wall:.3f} ms/step unprofiled ({wall_prof:.3f} under the profiler), kernels "
+              f"{busy:.3f} ms/step, device idle {100 * (1 - busy / wall):.1f}% of the "
+              f"unprofiled wall, {ops:.1f} device operations and {host:.1f} host launches "
+              f"per step; top kernels (name, ms/step, launches/step): {top}")
+
+    # The eval step's graph and the augmentation's, each against its eager
+    # function at the training shapes.
+    from stabnet_tpu_torch.data import augment, prepare_raw
+    from stabnet_tpu_torch.data.pipeline import augment_compiled, batch_iterator, ensure_flow
+    from stabnet_tpu_torch.train import eval_step, make_eval_step
+    from stabnet_tpu_torch.utils.graphs import GraphCache
+
+    evaluate = make_eval_step(cfg)
+    want = eval_step(state, batch, cfg)
+    got = [evaluate(state, batch) for _ in range(3)]
+    check(all(torch.equal(g[k], want[k]) for g in got for k in want),
+          "the eval graph differs from eval_step")
+    eval_stats = [g for g in state.graphs.stats() if g["key"][0] == "eval_step"]
+    check(len(eval_stats) == 1 and eval_stats[0]["replays"] == 2, f"eval graphs {eval_stats}")
+    cache = GraphCache()
+    gen_graph, gen_eager = torch.Generator().manual_seed(4), torch.Generator().manual_seed(4)
+    raws = batch_iterator(os.path.join(data, "train"), cfg, seed=4)
+    for _ in range(3):
+        raw = {k: torch.from_numpy(v) for k, v in prepare_raw(ensure_flow(next(raws))).items()}
+        a = augment_compiled(cache, gen_graph, raw, cfg, (0, 1), dev)
+        b = augment.augment_batch(gen_eager, {k: v.to(dev) for k, v in raw.items()}, cfg)
+        check(set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in b),
+              "the augmentation graph differs from augment_batch")
+    check(len(cache) == 1, f"augmentation graphs {cache.stats()}")
+
+    def graph_cost(st):
+        return (f"eager first call {st['warmup_s']:.3f} s, capture {st['capture_s']:.3f} s, "
+                f"pool {st['pool_bytes']} B")
+
+    print(f"[10 graphs] {card} | train step (v2_93 bf16 batch 10): {graph_cost(train_stats)}; "
+          f"eval step, torch.equal eval_step over 3 calls: {graph_cost(eval_stats[0])}; "
+          f"augmentation in the pipeline's thread: {graph_cost(aug_stats[0])}, and a fresh "
+          f"one torch.equal augment_batch over 3 batches: {graph_cost(cache.stats()[0])}; "
+          f"peak memory of the warm-up (eager first call and capture) {warm_gib:.2f} GiB "
+          f"above the {base_gib:.2f} GiB held before it")
+    graph_iter = float(np.mean([w[4] for w in windows if w[0] == "graph"]))
+    return timed, graph_iter
 
 
 # --- flow and metrics -------------------------------------------------------
@@ -1713,10 +1885,45 @@ def phase_metrics(card: str, dev, engine, clips: np.ndarray):
     check(max(gaps.values()) <= 1e-6, "metrics: card and CPU disagree")
 
 
+class IterTimes:
+    """Within: the host clock at each "iter N" log line of the training loop
+    (one per logged step; with disp_freq 1 each follows the step's loss
+    read-back, which waits for the device), so the gaps between them are
+    wall times per iteration."""
+
+    def __enter__(self):
+        import logging
+
+        times = self.times = []
+
+        class Handler(logging.Handler):
+            def emit(self, record):
+                if record.getMessage().startswith("iter ") and "test_loss" not in \
+                        record.getMessage():
+                    times.append(time.perf_counter())
+
+        self.handler = Handler()
+        logging.getLogger("stabnet_tpu_torch").addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        import logging
+
+        logging.getLogger("stabnet_tpu_torch").removeHandler(self.handler)
+
+    def ms(self, skip: int = 1):
+        """Iteration walls in ms after the first `skip` gaps (the first
+        iteration captures the step's graph)."""
+        return [round((b - a) * 1e3, 3) for a, b in zip(self.times, self.times[1:])][skip:]
+
+
+FLOW_STEPS = 12
+
+
 def phase_flow_train(card: str, tmp: str, data: str, flowless_iter_ms: float):
     """Phase 8's make-synthetic shards with the flow field stripped, then
-    `train --compute-flow` through the CLI at v2_93 bf16 batch 10 for 4
-    steps, the temporal loss fed by the flow from step 0."""
+    `train --compute-flow` through the CLI at v2_93 bf16 batch 10 for
+    FLOW_STEPS steps, the temporal loss fed by the flow from step 0."""
     from stabnet_tpu_torch.cli.main import main as cli
     from stabnet_tpu_torch.data import records
     from stabnet_tpu_torch.ops import cuda_warp
@@ -1731,7 +1938,7 @@ def phase_flow_train(card: str, tmp: str, data: str, flowless_iter_ms: float):
     log_dir = os.path.join(tmp, "flow_log")
     base = ["train", "--config", "v2_93", "--data", flowless, "--model-dir",
             os.path.join(tmp, "flow_models"), "--log-dir", log_dir, "--seed", "0",
-            "--set", "disp_freq=1", *TRAIN_LIVE, "--steps", "4"]
+            "--set", "disp_freq=1", *TRAIN_LIVE, "--steps", str(FLOW_STEPS)]
     try:
         cli(base)
         raise AssertionError("train on flowless shards without --compute-flow ran")
@@ -1739,32 +1946,41 @@ def phase_flow_train(card: str, tmp: str, data: str, flowless_iter_ms: float):
         check("--compute-flow" in str(e), f"refusal without --compute-flow: {e}")
     cuda_warp.reset_launch_counts()
     t0 = time.perf_counter()
-    cli(base + ["--compute-flow"])
+    with IterTimes() as walls:
+        cli(base + ["--compute-flow"])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = launch_counts()
     # Each step launches K2 twice (the K5 and K6 forwards), each batch the
-    # pipeline made (the 4 steps', and up to 3 more it had in hand or queued
+    # pipeline made (the steps', and up to 3 more it had in hand or queued
     # when it was closed) 20 times in its flow.
-    batches = (launches["bilinear_sample"] - 2 * 4) / 20
+    n = FLOW_STEPS
+    batches = (launches["bilinear_sample"] - 2 * n) / 20
     rest = {k: v for k, v in launches.items() if k != "bilinear_sample"}
-    check(batches == int(batches) and 4 <= batches <= 7
+    check(batches == int(batches) and n <= batches <= n + 3
           and rest == {"warp_mesh": 0, "warp_uint8_cf_lowres": 0, "warp_uint8_cf": 0,
-                       "bilinear_splat": 4, "sample_map_grad": 4},
+                       "bilinear_splat": n, "sample_map_grad": n},
           f"train --compute-flow launches {launches}")
     with open(os.path.join(log_dir, "metrics.jsonl")) as f:
         rows = [r for r in map(json.loads, f) if r["tag"] == "train"]
-    check([r["step"] for r in rows] == [0, 1, 2, 3], f"steps {[r['step'] for r in rows]}")
+    check([r["step"] for r in rows] == list(range(n)), f"steps {[r['step'] for r in rows]}")
     check(all(math.isfinite(r["total"]) and r["temp"] > 0 for r in rows),
           f"losses {[(r['total'], r['temp']) for r in rows]}")
-    iter_ms = float(np.mean([r["data_ms"] + r["step_ms"] for r in rows[1:]]))
-    print(f"[13 flow train] {card} | train --compute-flow, v2_93 bf16 batch 10, 4 steps "
-          f"through the CLI in {seconds:.1f} s (refused without --compute-flow): launches "
-          f"{launches} (K2: 2 per step + 20 per tvl1_flow, {int(batches)} batches made); "
-          f"temporal loss live (step 0 temp {rows[0]['temp']:.6g}, total "
-          f"{rows[0]['total']:.6g}); {iter_ms:.3f} ms per synchronized iteration (data wait "
-          f"+ step, steps 1-3; data {[round(r['data_ms'], 3) for r in rows[1:]]}) against "
-          f"{flowless_iter_ms:.3f} ms with record flow (phase 10)")
+    # The pipeline's thread enqueues a batch's flow as soon as the queue
+    # has room, so a step's loss read-back also waits for the flows queued
+    # ahead of it and the walls come in bursts: their mean over the window
+    # after the first three (which drain what was made during step 0's
+    # capture) is the iteration.
+    iter_ms = float(np.mean(walls.ms(skip=3)))
+    print(f"[13 flow train] {card} | train --compute-flow, v2_93 bf16 batch 10, {n} steps "
+          f"through the CLI, training {seconds:.1f} s (refused without --compute-flow): "
+          f"launches {launches} (K2: 2 per step + 20 per tvl1_flow, {int(batches)} batches "
+          f"made); temporal loss live (step 0 temp {rows[0]['temp']:.6g}, total "
+          f"{rows[0]['total']:.6g}); {iter_ms:.3f} ms per iteration, the mean of the "
+          f"walls between the loop's log lines after the first three ({walls.ms(skip=0)}; "
+          f"loop stages data {[round(r['data_ms'], 3) for r in rows[1:]]}, step "
+          f"{[round(r['step_ms'], 3) for r in rows[1:]]} ms) against {flowless_iter_ms:.3f} "
+          f"ms with record flow (phase 10's graph windows)")
     return launches, iter_ms
 
 
@@ -2724,6 +2940,9 @@ def phase_quality_gate(card: str, tmp: str):
             * (2 * clips)}
     check(record == want, f"quality gate launches {record}, expected {want}")
     seconds = [ln for ln in proc.stderr.splitlines() if ln.startswith("quality gate on")]
+    train_s = json.loads(seconds[-1].split("seconds ", 1)[1])["train"] if seconds else math.nan
+    with open(os.path.join(tmp, "gate", "log", "metrics.jsonl")) as f:
+        last = [r for r in map(json.loads, f) if r["tag"] == "train"][-1]
     total = {k: sum(r[k] for part in record.values() for r in part) for k in zero}
     print(f"[22 quality gate] {card} | scripts/torch_quality_gate.py {' '.join(GATE_ARGS)} in "
           f"its own process, {wall:.1f} s, exit {proc.returncode}: pass {report['pass']}, "
@@ -2734,7 +2953,10 @@ def phase_quality_gate(card: str, tmp: str):
           f"{clips}, min distortion {report['min_distortion_trained']:.4f}, final loss "
           f"{report['final_train_loss']:.5f}; launches: training {record['train'][0]}, each "
           f"served batch of {clips} x {T} frames {record['serve'][0]}, each scored clip "
-          f"{record['score'][0]} | {seconds[-1] if seconds else ''}")
+          f"{record['score'][0]}; training {train_s:.1f} s, {train_s / steps * 1e3:.1f} "
+          f"ms per step, the loop's stage means over steps 1-{last['step']}: data "
+          f"{last['data_ms']:.3f} ms, step {last['step_ms']:.3f} ms | "
+          f"{seconds[-1] if seconds else ''}")
     return total
 
 
@@ -2784,6 +3006,7 @@ def phase_endurance(card: str, started):
     segments = [ln for ln in stdout.splitlines() if " steps in " in ln]
     print(f"[23 endurance] {card} | scripts/torch_endurance.py {' '.join(ENDURANCE_ARGS)}, "
           f"{wall:.1f} s from its start, beside phase 22: verdict {json.dumps(verdict)}; "
+          f"training segments (each a `train` process of its own, its start included): "
           f"{'; '.join(segments)}")
 
 
@@ -2832,6 +3055,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         train_launches, data = timed(8, phase_train_path, tmp)
         timed(9, phase_train_card_vs_cpu, dev)
+        timed(9, phase_train_graph, card, dev)
         train_timed, flowless_iter_ms = timed(10, phase_train_times, card, gen, dev, data)
         timed_ms.update(train_timed)
         timed(13, phase_flow_train, card, tmp, data, flowless_iter_ms)

@@ -3,8 +3,11 @@ pipeline (PyTorch port of stabnet_tpu.data)."""
 
 from stabnet_tpu_torch.data.augment import (
     AugParams,
+    Draws,
     augment_batch,
     augment_example,
+    augment_with,
+    draw_augmentation,
     draw_params,
     prepare_raw,
 )

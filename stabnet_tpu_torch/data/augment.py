@@ -180,32 +180,42 @@ def add_history_masks(Hs: torch.Tensor, history: torch.Tensor,
 
 # --- full augmentation ---------------------------------------------------------
 
-def augment_batch(generator: torch.Generator, raw: Dict[str, torch.Tensor],
-                  cfg: StabNetConfig, part: Tuple[int, int] = (0, 1)
-                  ) -> Dict[str, torch.Tensor]:
-    """Raw batch (tensors on the device) -> Siamese training batch.
+# The keys of an augmented batch (and "flow" where the raw batch has one).
+BATCH_KEYS = ("x1", "y1", "x2", "y2", "matches1", "mask1", "matches2", "mask2")
 
-    Raw layout (records.py, mirroring get_data_mini_after.py:178-226):
-      stable:   (B, H, W, 2*(before_ch+1)) uint8 or model scale; channels
-                [0..bc] are the frames of step 1 (current stable first),
-                [bc+1..] the same for step 2;
-      unstable: (B, H, W, 2) the current unstable frames of steps 1 and 2;
-      flow:     (B, H, W, 2) NDC correspondence map between the stable pair;
-      matches1, matches2: (B, max_matches, 4); mask1, mask2: (B, max_matches).
 
-    Returns x1, y1, x2, y2, flow, matches1, mask1, matches2, mask2 with x*
-    of shape (B, H, W, in_channels).  The draws come from `generator`;
-    with `part=(index, count)` they are drawn for a global batch of count *
-    B examples, and this batch is its index-th slice (a data-parallel rank's
-    share, parallel/multihost.py).
-    """
-    B = raw["stable"].shape[0]
-    dev = raw["stable"].device
-    bc = cfg.before_ch
+class Draws(NamedTuple):
+    """One batch's random draws: its parameter sets and its history masks'
+    homographies (2, B, before_ch, 3, 3), one set per Siamese step."""
+
+    params: AugParams
+    homographies: torch.Tensor
+
+    def to(self, device) -> "Draws":
+        return Draws(self.params.to(device), self.homographies.to(device))
+
+
+def draw_augmentation(generator: torch.Generator, cfg: StabNetConfig, B: int,
+                      part: Tuple[int, int] = (0, 1)) -> Draws:
+    """The draws of a batch of `B` examples from `generator` (CPU tensors):
+    `draw_params`, then `rand_homography`, for a global batch of count * B
+    examples, of which this batch takes the index-th slice
+    (`part=(index, count)`; a data-parallel rank's share,
+    parallel/multihost.py)."""
     index, count = part
     mine = slice(index * B, (index + 1) * B)
-    p = AugParams(*(t[mine] for t in draw_params(generator, cfg, B * count))).to(dev)
-    Hs = rand_homography(generator, cfg, (2, B * count, bc))[:, mine].to(dev)
+    p = AugParams(*(t[mine] for t in draw_params(generator, cfg, B * count)))
+    Hs = rand_homography(generator, cfg, (2, B * count, cfg.before_ch))[:, mine]
+    return Draws(p, Hs)
+
+
+def augment_with(raw: Dict[str, torch.Tensor], draws: Draws,
+                 cfg: StabNetConfig) -> Dict[str, torch.Tensor]:
+    """The device work of `augment_batch`, given its draws: a function of
+    tensors alone (the raw batch and the draws, on one device), which a
+    CUDA graph can capture."""
+    bc = cfg.before_ch
+    p, Hs = draws
 
     def to_model_scale(a):
         # uint8 records (4x cheaper upload); model scale is [-0.5, 0.5]
@@ -229,6 +239,28 @@ def augment_batch(generator: torch.Generator, raw: Dict[str, torch.Tensor],
     if "flow" in raw:
         out["flow"] = warp_flow(raw["flow"], p, cfg)
     return out
+
+
+def augment_batch(generator: torch.Generator, raw: Dict[str, torch.Tensor],
+                  cfg: StabNetConfig, part: Tuple[int, int] = (0, 1)
+                  ) -> Dict[str, torch.Tensor]:
+    """Raw batch (tensors on the device) -> Siamese training batch:
+    `draw_augmentation`, then `augment_with`.
+
+    Raw layout (records.py, mirroring get_data_mini_after.py:178-226):
+      stable:   (B, H, W, 2*(before_ch+1)) uint8 or model scale; channels
+                [0..bc] are the frames of step 1 (current stable first),
+                [bc+1..] the same for step 2;
+      unstable: (B, H, W, 2) the current unstable frames of steps 1 and 2;
+      flow:     (B, H, W, 2) NDC correspondence map between the stable pair;
+      matches1, matches2: (B, max_matches, 4); mask1, mask2: (B, max_matches).
+
+    Returns x1, y1, x2, y2, flow, matches1, mask1, matches2, mask2 with x*
+    of shape (B, H, W, in_channels).  The draws come from `generator`, for
+    the `part` of a global batch as `draw_augmentation` takes it.
+    """
+    draws = draw_augmentation(generator, cfg, raw["stable"].shape[0], part)
+    return augment_with(raw, draws.to(raw["stable"].device), cfg)
 
 
 def augment_example(generator: torch.Generator, raw: Dict[str, torch.Tensor],

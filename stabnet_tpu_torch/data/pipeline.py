@@ -1,13 +1,16 @@
 """Host -> device input pipeline (PyTorch port of stabnet_tpu/data/pipeline.py).
 
-  host thread: shard read -> batch raw examples -> upload -> augmentation
-               [-> TV-L1 flow] (both run on the device, enqueued from the
-               thread)
+  host thread: shard read -> batch raw examples -> draws -> upload and
+               augmentation [-> TV-L1 flow] (both run on the device,
+               enqueued from the thread)
   main thread: train steps
 
 with a small bounded queue between the two, so batch N+1's read, upload and
-augmentation overlap step N.  Both threads enqueue on the device's default
-stream, so a batch is complete before any step reads it.
+augmentation overlap step N.  On CUDA the upload and the augmentation are
+one captured CUDA graph per batch signature (the JAX package's `jax.jit` of
+the augmentation), fed through pinned stages, and the flow is its own graph
+(ops/flow.py).  Both threads enqueue on the device's default stream, so a
+batch is complete before any step reads it.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from stabnet_tpu_torch.data import augment
 from stabnet_tpu_torch.data.records import iterate_examples
 from stabnet_tpu_torch.ops import flow as flow_ops
 from stabnet_tpu_torch.utils import resolve_device
+from stabnet_tpu_torch.utils.graphs import GraphCache
 
 
 def batch_iterator(path: str, cfg: StabNetConfig, seed: int = 0,
@@ -114,6 +118,37 @@ def add_flow(batch: Dict[str, torch.Tensor], want_flow: bool = True
     return batch
 
 
+def augment_compiled(graphs: GraphCache, generator: torch.Generator,
+                     raw: Dict[str, torch.Tensor], cfg: StabNetConfig,
+                     part: Tuple[int, int], device) -> Dict[str, torch.Tensor]:
+    """`augment.augment_batch` of a raw batch (host or device tensors) on
+    `device`, the same batch bit for bit: the draws on the host, then, on
+    CUDA, the replay of `graphs`' captured graph of `augment.augment_with`
+    for (the batch's shapes and dtypes, `part`, whether it has a flow),
+    with the raw arrays and the draws as its inputs (host tensors copied in
+    through pinned stages).  The batch is copied out of the graph's
+    buffers, which its next replay overwrites."""
+    device = torch.device(device)
+    draws = augment.draw_augmentation(generator, cfg, raw["stable"].shape[0], part)
+    if device.type != "cuda":
+        return augment.augment_with({k: v.to(device) for k, v in raw.items()},
+                                    draws.to(device), cfg)
+    names = tuple(sorted(raw))
+    keys = augment.BATCH_KEYS + (("flow",) if "flow" in raw else ())
+
+    def fn(*tensors):
+        n = len(names)
+        params = augment.AugParams(*tensors[n:n + len(augment.AugParams._fields)])
+        out = augment.augment_with(dict(zip(names, tensors[:n])),
+                                   augment.Draws(params, tensors[-1]), cfg)
+        return tuple(out[k] for k in keys)
+
+    inputs = [raw[k] for k in names] + list(draws.params) + [draws.homographies]
+    with torch.no_grad(), graphs.lock:
+        outs = graphs(("augment", part, "flow" in raw, cfg), fn, inputs, device)
+        return {k: v.clone() for k, v in zip(keys, outs)}
+
+
 class InputPipeline:
     """Raw record batches -> augmented batches on `device`, ready for
     `train_step`.  Reading, upload and augmentation run in the prefetch
@@ -139,13 +174,15 @@ class InputPipeline:
                  shard: Tuple[int, int] = (0, 1)):
         dev = resolve_device(device)
         gen = torch.Generator().manual_seed(seed * 1_000_003 + start_step)
+        self.graphs = GraphCache()
 
         def device_batches():
             for n, raw in enumerate(batch_iterator(path, cfg, seed=seed + start_step,
                                                    batch_size=batch_size, shard=shard)):
                 raw = augment.prepare_raw(ensure_flow(raw, compute_flow))
-                batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
-                batch = augment.augment_batch(gen, batch, cfg, part=shard)
+                batch = augment_compiled(self.graphs, gen,
+                                         {k: torch.from_numpy(v) for k, v in raw.items()},
+                                         cfg, shard, dev)
                 if compute_flow:
                     batch = add_flow(batch, start_step + n >= flow_from_step)
                 yield batch

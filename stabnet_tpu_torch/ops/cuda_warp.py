@@ -30,11 +30,13 @@ tensors and only there; on CUDA tensors the kernel launches or raises, and
 nothing falls back.  The public functions below check their arguments and
 call the op.  Every launch adds one to the public function's `launches`
 attribute, so a run can show that it went through the kernel, the ops of an
-exported program included.  A launch made while its thread captures a CUDA
-graph runs nothing: it goes into the capture's record instead
-(`recording_launches`), which the graph cache (utils/graphs.py) adds to the
-counts once per replay (`add_launches`), so a count is always the launches
-that ran.  The kernels reproduce the plain versions'
+exported program included.  A launch made into a CUDA graph's capture runs
+nothing: it goes into the capture's record instead (`recording_launches`),
+which the graph cache (utils/graphs.py) adds to the counts once per replay
+(`add_launches`), so a count is always the launches that ran.  The record
+is found by the capturing stream, not by the thread: autograd runs K5's
+and K6's backwards (K4, K6b) on its own device thread, on the stream of
+their forward.  The kernels reproduce the plain versions'
 arithmetic operation for operation, so the two agree bit for bit (see the
 notes in csrc/).
 
@@ -120,12 +122,29 @@ def _on_card(*tensors: torch.Tensor) -> None:
 
 
 _capture = threading.local()
+_stream_records: Dict[Tuple[int, int], Dict[object, int]] = {}   # capturing stream -> record
+
+
+def _stream_key(stream) -> Tuple[int, int]:
+    return (stream.device_index, stream.stream_id)
+
+
+def _capturing_stream():
+    """The key of this thread's current CUDA stream while it captures a
+    graph, else None."""
+    if not torch.cuda.is_available() or not torch.cuda.is_current_stream_capturing():
+        return None
+    return _stream_key(torch.cuda.current_stream())
 
 
 def _launched(kernel) -> None:
     """Count one launch of `kernel` (a public wrapper): on its `launches`,
-    or, while this thread records a graph capture, in the capture's record."""
-    record = getattr(_capture, "record", None)
+    or into a capture's record: that of the stream being captured (on
+    whatever thread launches into it), else that of this thread."""
+    key = _capturing_stream()
+    record = _stream_records.get(key) if key is not None else None
+    if record is None:
+        record = getattr(_capture, "record", None)
     if record is None:
         kernel.launches += 1
     else:
@@ -133,16 +152,26 @@ def _launched(kernel) -> None:
 
 
 @contextlib.contextmanager
-def recording_launches() -> Iterator[Dict[object, int]]:
-    """Within: this thread's launches go into the yielded record {wrapper:
-    launches}, not into the counts (a CUDA graph capture launches nothing;
-    other threads count as before)."""
+def recording_launches(stream=None) -> Iterator[Dict[object, int]]:
+    """Within: this thread's launches, and every launch into a capture of
+    `stream` (a CUDA stream, from any thread), go into the yielded record
+    {wrapper: launches}, not into the counts (a CUDA graph capture
+    launches nothing; other threads and streams count as before)."""
     outer = getattr(_capture, "record", None)
     _capture.record = record = {}
+    key = None if stream is None else _stream_key(stream)
+    outer_stream = _stream_records.get(key)
+    if key is not None:
+        _stream_records[key] = record
     try:
         yield record
     finally:
         _capture.record = outer
+        if key is not None:
+            if outer_stream is None:
+                del _stream_records[key]
+            else:
+                _stream_records[key] = outer_stream
 
 
 def add_launches(record: Dict[object, int]) -> None:

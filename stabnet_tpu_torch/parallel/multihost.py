@@ -61,9 +61,14 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
     return True
 
 
+def in_process_group() -> bool:
+    """Whether this process is a rank of an initialized process group."""
+    return dist.is_available() and dist.is_initialized()
+
+
 def process_index_count() -> Tuple[int, int]:
     """(rank, world size): (0, 1) without a process group."""
-    if dist.is_available() and dist.is_initialized():
+    if in_process_group():
         return dist.get_rank(), dist.get_world_size()
     return 0, 1
 
@@ -89,7 +94,7 @@ def average_gradients(params: List[torch.nn.Parameter]) -> None:
     """Replace each gradient by its mean over the ranks: one all-reduce of
     the flattened gradients, divided by the world size (exact for one
     rank).  A no-op without a process group."""
-    if not dist.is_available() or not dist.is_initialized():
+    if not in_process_group():
         return
     grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
     flat = torch.cat([g.reshape(-1) for g in grads])
@@ -103,7 +108,7 @@ def mean_over_ranks(values: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Scalars averaged over the ranks (the global batch's loss terms,
     since each is a batch mean over equal local batches); unchanged without
     a process group."""
-    if not dist.is_available() or not dist.is_initialized():
+    if not in_process_group():
         return values
     keys = sorted(values)
     flat = torch.stack([values[k].detach().float().reshape(()) for k in keys])
@@ -113,7 +118,7 @@ def mean_over_ranks(values: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 
 def barrier() -> None:
-    if dist.is_available() and dist.is_initialized():
+    if in_process_group():
         dist.barrier()
 
 

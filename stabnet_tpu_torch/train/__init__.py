@@ -10,5 +10,7 @@ from stabnet_tpu_torch.train.train import (
     compute_losses,
     eval_step,
     loss_gates,
+    make_eval_step,
+    make_train_step,
     train_step,
 )

@@ -77,7 +77,9 @@ def save(directory: str, state: TrainState) -> str:
 
 def restore(directory: str, state: TrainState) -> TrainState:
     """Load the newest checkpoint of `directory` into `state` (in place:
-    model, optimizer and step); raises FileNotFoundError if there is none."""
+    model, optimizer and step, each counter's host and device halves by its
+    setter; the state's captured steps read the restored values at their
+    next replay); raises FileNotFoundError if there is none."""
     step = latest_step(directory)
     if step is None:
         raise _missing(directory)

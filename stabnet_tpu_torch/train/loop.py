@@ -3,9 +3,12 @@
 Reference: train_bundle_nobm.py:199-357 — per-100-iteration loss display
 with the data-read vs. train-time split, per-500-iteration held-out eval
 over 10 batches, per-5000-iteration checkpoints; the JAX package's
-stabnet_tpu/train/loop.py.  In a process group (data parallelism,
-parallel/multihost.py) every rank steps, and rank 0 alone logs, writes the
-metrics and saves checkpoints while the others wait at a barrier.  With
+stabnet_tpu/train/loop.py.  The steps are the compiled ones
+(`make_train_step`, `make_eval_step`: captured CUDA graphs on the card, the
+eager steps on the CPU and in a process group), built once per run.  In a
+process group (data parallelism, parallel/multihost.py) every rank steps,
+and rank 0 alone logs, writes the metrics and saves checkpoints while the
+others wait at a barrier.  With
 `debug_vis`, rank 0 also dumps the reference's debug mosaics
 (train_bundle_nobm.py:41-94) from a forward in eval mode.
 """
@@ -22,7 +25,7 @@ from stabnet_tpu_torch.config import StabNetConfig
 from stabnet_tpu_torch.parallel.multihost import barrier, process_index_count
 from stabnet_tpu_torch.train import checkpoint as ckpt
 from stabnet_tpu_torch.train.state import create_train_state
-from stabnet_tpu_torch.train.train import eval_step, train_step
+from stabnet_tpu_torch.train.train import make_eval_step, make_train_step
 from stabnet_tpu_torch.utils import get_logger
 from stabnet_tpu_torch.utils.profiling import StageTimer
 
@@ -78,7 +81,8 @@ def _debug_dump(state, batch, cfg: StabNetConfig, step: int,
     training mode the forward would update them, and in a process group
     reduce them over the ranks, which this rank alone would wait for.  It
     draws from no generator, so the training run is bit for bit the same
-    with and without the dump.  On CUDA the warp is one K2m launch."""
+    with and without the dump.  On CUDA the warp is one K2m launch.  It runs
+    eagerly, as the JAX package's dump does (it is not jitted there)."""
     from stabnet_tpu_torch.models.stabnet import forward
     from stabnet_tpu_torch.train.visualize import save_debug_batch
 
@@ -125,6 +129,7 @@ def train(cfg: StabNetConfig, train_batches: Iterator,
     main = process_index_count()[0] == 0
     metrics = MetricsWriter(cfg.log_dir, tensorboard=tensorboard) if main else None
     timers = StageTimer()
+    train_step, eval_step = make_train_step(cfg), make_eval_step(cfg)
     total = num_steps if num_steps is not None else cfg.training_iter
     aux = None
     try:
@@ -132,7 +137,7 @@ def train(cfg: StabNetConfig, train_batches: Iterator,
             with timers.stage("data"):
                 batch = next(train_batches)
             with timers.stage("step"):
-                state, aux = train_step(state, batch, cfg)
+                state, aux = train_step(state, batch)
 
             if i % cfg.disp_freq == 0 or i == total - 1:
                 if main:
@@ -151,7 +156,7 @@ def train(cfg: StabNetConfig, train_batches: Iterator,
 
             if test_batches is not None and (i % cfg.test_freq == 0 or i == total - 1):
                 test_loss = float(np.mean([
-                    float(eval_step(state, next(test_batches), cfg)["total"])
+                    float(eval_step(state, next(test_batches))["total"])
                     for _ in range(cfg.test_batches)]))
                 if main:
                     logger.info("iter %d test_loss=%.5f", i, test_loss)

@@ -19,7 +19,18 @@ computes, as the input pipeline's prefetch thread runs the flow while the
 main thread trains) and instantiated.  Later calls copy their inputs into
 the graph's buffers (a host tensor through a pinned stage, so the copy does
 not wait for the device) and replay the graph on the caller's current
-stream.  Kernel launches are counted per replay (`cuda_warp.add_launches`).
+stream.  Kernel launches are counted per replay (`cuda_warp.add_launches`):
+a capture's record is keyed by its stream, so the launches autograd's
+device thread makes into it (a backward's kernels) are counted too.
+
+A training step is captured whole, as PyTorch's whole-network capture is:
+forward, backward and the optimizer in one graph, with grad mode as the
+caller set it.  The step sets each `.grad` to None first, so the capture
+allocates the gradients from the graph's pool and the optimizer reads them
+in the same graph.  Captures run one at a time in the process (a module
+lock), so a thread's capture never overlaps another's: the training step's
+on the main thread and the augmentation's or the flow's on the input
+pipeline's thread.
 
 A graph's outputs are its own buffers: valid until the next call of that
 key, so the caller copies out what it keeps first.  A capture or a replay
@@ -99,6 +110,9 @@ class GraphCache:
     the call and the copy.
     """
 
+    # One capture at a time in the process (see the module's docstring).
+    _capturing = threading.Lock()
+
     def __init__(self, shared_pool: bool = False):
         self.shared_pool = shared_pool
         self.lock = threading.RLock()
@@ -129,7 +143,8 @@ class GraphCache:
         with self.lock, torch.cuda.device(device):
             graph = self._graphs.get(sig)
             if graph is None:
-                return self._capture(sig, fn, inputs, device)
+                with GraphCache._capturing:
+                    return self._capture(sig, fn, inputs, device)
             graph.load(inputs)
             graph.graph.replay()
             graph.replays += 1
@@ -161,7 +176,7 @@ class GraphCache:
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         try:
-            with cuda_warp.recording_launches() as launches:
+            with cuda_warp.recording_launches(side) as launches:
                 with torch.cuda.graph(graph, pool=pool, stream=side,
                                       capture_error_mode="thread_local"):
                     reserved = torch.cuda.memory_reserved(device)
