@@ -72,15 +72,24 @@ nonzero exit):
      bit for bit, at the pyramid of the training shape, (10, 288, 512, 3)
      down to (10, 32, 64, 3), and at the metrics' pyramid, (32, 144, 256,
      3) down to (32, 16, 32, 3), on clipped flow maps, and its times;
-     tvl1_flow at (10, 288, 512), fine_iters 40, and at the metrics' (32,
-     144, 256), fine_iters 100: the captured graph torch.equal the eager
-     flow, its launches per replay (20 of K2), ms per call both ways,
+     tvl1_flow at (10, 288, 512), fine_iters 40 (the metrics' flow runs
+     inside the metrics chunk's graphs, phase 12): the captured graph
+     torch.equal the eager flow, its launches per replay (20 of K2), ms
+     per call both ways,
      capture seconds and pool bytes, device operations and host launches
      per call both ways; card against CPU at (2, 96, 128), bit for bit; a
      translation recovered on the card;
  12. quality metrics: the S=1 driver keeping its input grays on the
      40-frame 720p clip, then score_stabilized_clip at 144x256 (launches,
-     seconds per clip, every score in (0, 1]); evaluate_clip card against
+     seconds per clip with the metrics chunk's three graphs captured,
+     every score in (0, 1]); the clip scored again through the graphs
+     (its wall split into the grays, the chunk replays and the rest) and
+     with the eager chunks, every score equal; each chunk key's graph
+     (output stability: prealign and a rect; input stability: prealign;
+     cross-video: a rect) torch.equal the eager chunk on the scoring's own
+     first chunk of that key, 20 K2 launches per replay, device operations,
+     host launches and ms per chunk both ways, capture seconds and pool
+     bytes; evaluate_clip card against
      CPU on the driver's first 12 frames at 144x256, and where the devices
      part: the flow of those frames and the phase correlation bit for bit,
      the fit, the spectrum and the singular values on equal inputs;
@@ -105,19 +114,24 @@ nonzero exit):
      trunk grafted by transfer_from_imagenet, then one training step (finite
      losses; K2 2, K4 1, K6b 1 launches);
  16. export: the v2_93 bf16 720p serving step traced by torch.export at S=1,
-     and at S=4 with a 2-frame segment, saved, loaded from bytes and served:
-     phase 4's clip through StreamDriver on the exported engine against the
-     live one (bit for bit, K1 and K2m once per frame), the 4-clip batch on
+     and at S=4 with a 2-frame segment, saved, loaded from bytes and served
+     by ExportedEngine (a captured CUDA graph of the step and of the
+     segment): the S=1 step's graph torch.equal the program called eagerly
+     over 8 frames, the S=4 segment's over 3 segments with a stream frozen;
+     phase 4's clip through StreamDriver on the exported engine, graphs and
+     eager, against the live one (bit for bit, K1 and K2m once per frame),
+     pipelined against synchronous (bit for bit), the 4-clip batch on
      the segment against the live batch chunked by 2 (bit for bit), export
-     and load seconds, artifact bytes, "net" p50/p90 of each engine in
-     turns, and the device operations and host launches per frame of
-     each; then `export
+     and load seconds, artifact bytes, "net" p50/p90 in turns live,
+     exported graph, exported eager, live, and the device operations and
+     host launches per frame of each; then `export
      --platforms` through the CLI with --selftest, traced on the card for
      cuda and cpu and traced on the CPU for cpu and cuda: the header lists
      both programs, neither CUDA program's graph holds a cuDNN-, MKLDNN- or
      CUDA-specific operation, and each program serves on its own device bit
      for bit as the live engine there (each CUDA program the 40-frame clip
-     with K1 and K2m once per frame, each CPU program 2 frames with no
+     with K1 and K2m once per frame, its graph torch.equal the program
+     called eagerly over 4 frames; each CPU program 2 frames with no
      kernel launched);
  17. data parallel: `train --data-parallel` through the CLI on phase 8's
      shards for 2 steps in rank processes of this script, the three runs
@@ -1639,15 +1653,21 @@ def device_ops(fn):
     """One call of `fn` under torch.profiler (CUDA activity alone: the CPU
     activity's per-operator events would cost seconds on an eager flow):
     the device operations (kernels, copies, fills) it ran, their summed time
-    in ms, and the host launches that queued them (`profile_counts`; the
-    runtime calls come with the CUDA activity)."""
+    in ms, and the host launches that queued them (the runtime calls come
+    with the CUDA activity).  Counted from the profiler's raw events, not
+    `key_averages`, whose per-event Python objects take tens of seconds over
+    an eager flow's or metrics chunk's 72,000-85,000 operations (the two
+    counts agreed within 0.5 % in calls B14 and C14)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return profile_counts(prof, 1)[:3]
+    events = prof.profiler.kineto_results.events()
+    device = [e for e in events if e.device_type() == torch.autograd.DeviceType.CUDA]
+    return (len(device), sum(e.duration_ns() for e in device) / 1e6,
+            sum(1 for e in events if e.name() in HOST_LAUNCHES))
 
 
 def phase_flow(card: str, gen: torch.Generator, dev, clips: np.ndarray):
@@ -1699,66 +1719,49 @@ def phase_flow(card: str, gen: torch.Generator, dev, clips: np.ndarray):
           f"library F.grid_sample (border) {t['library_ms']:.5f} ms, bound "
           f"{t['bound_ms'] * 1e3:.3f} us ({nbytes} B, {t['bound_by']})")
 
-    # tvl1_flow at the training shape on consecutive frames of the clip, and
-    # at the metrics' (32 pairs at 144x256, fine_iters 100): the graph (its
-    # first call captures it, eagerly) against the eager flow, torch.equal,
-    # then each timed both ways.
-    from stabnet_tpu_torch.eval.metrics import _EVAL_CHUNK, _FINE_ITERS
+    # tvl1_flow at the training shape on consecutive frames of the clip: the
+    # graph (its first call captures it, eagerly) against the eager flow,
+    # torch.equal, then timed both ways.  (The metrics' flow runs inline in
+    # the metrics chunk's graphs, phase 12.)
     from stabnet_tpu_torch.ops import flow as flow_ops
 
-    color = torch.from_numpy(clips[0, :_EVAL_CHUNK + 1]).to(dev).permute(0, 3, 1, 2)
-    gray = gray_from_color(color[:B + 1], (H, W))
-    i0, i1 = gray[:-1].contiguous(), gray[1:].contiguous()
-    mgray = gray_from_color(color, (144, 256))
-    m0, m1 = mgray[:-1].contiguous(), mgray[1:].contiguous()
-    rows = []
-    for what, a, b, kw in (("training", i0, i1, {}),
-                           ("metrics", m0, m1, {"fine_iters": _FINE_ITERS})):
-        u = tvl1_flow(a, b, **kw)
+    color = torch.from_numpy(clips[0, :B + 1]).to(dev).permute(0, 3, 1, 2)
+    gray = gray_from_color(color, (H, W))
+    a, b = gray[:-1].contiguous(), gray[1:].contiguous()
+    u = tvl1_flow(a, b)
+    torch.cuda.synchronize()
+    cuda_warp.reset_launch_counts()
+    u = tvl1_flow(a, b)
+    torch.cuda.synchronize()
+    per_call = launch_counts()
+    expected = {k: 0 for k in per_call} | {"bilinear_sample": 20}
+    check(per_call == expected, f"tvl1_flow launches per replay {per_call}, "
+                                f"expected {expected}")
+    check(tuple(u.shape) == tuple(a.shape) + (2,) and bool(torch.isfinite(u).all()),
+          f"tvl1_flow output {tuple(u.shape)}, finite {bool(torch.isfinite(u).all())}")
+    walls = {"graph": [], "eager": []}
+    for mode in ("graph", "eager", "graph"):
+        fn = tvl1_flow if mode == "graph" else flow_ops.tvl1_flow_eager
         torch.cuda.synchronize()
-        cuda_warp.reset_launch_counts()
-        u = tvl1_flow(a, b, **kw)
+        t0 = time.perf_counter()
+        got = fn(a, b)
         torch.cuda.synchronize()
-        launches = launch_counts()
-        expected = {k: 0 for k in launches} | {"bilinear_sample": 20}
-        check(launches == expected, f"tvl1_flow {what} launches per replay {launches}, "
-                                    f"expected {expected}")
-        check(tuple(u.shape) == tuple(a.shape) + (2,) and bool(torch.isfinite(u).all()),
-              f"tvl1_flow output {tuple(u.shape)}, finite {bool(torch.isfinite(u).all())}")
-        walls = {"graph": [], "eager": []}
-        for mode in ("graph", "eager", "graph"):
-            fn = tvl1_flow if mode == "graph" else flow_ops.tvl1_flow_eager
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            got = fn(a, b, **kw)
-            torch.cuda.synchronize()
-            walls[mode].append((time.perf_counter() - t0) * 1e3)
-            if mode == "eager":
-                check(torch.equal(got, u), f"tvl1_flow {what}: the graph differs from eager")
-        cap = [st for st in flow_ops.GRAPHS.stats() if st["shapes"][0] == tuple(a.shape)][0]
-        # The eager call's operations are profiled at the training shape only
-        # (the profiler's bookkeeping of 85k operations costs seconds).
-        ops = {mode: device_ops(lambda: (tvl1_flow if mode == "graph" else
-                                         flow_ops.tvl1_flow_eager)(a, b, **kw))
-               for mode in (("graph", "eager") if what == "training" else ("graph",))}
-        rows.append((what, tuple(a.shape), kw, walls, cap, ops))
-        if what == "training":
-            per_call = launches
-    for what, shape, kw, walls, cap, ops in rows:
-        g_ms, e_ms = float(np.median(walls["graph"])), walls["eager"][0]
-        e_ops = ops.get("eager", (float("nan"),) * 3)
-        host = (f"{ops['graph'][2]:.0f} / {e_ops[2]:.0f}" if ops["graph"][2] else
-                "not measured (the trace holds no runtime calls)")
-        print(f"[11 flow {what}] {card} | tvl1_flow {shape} {kw or 'fine_iters 40'}: the "
-              f"captured graph torch.equal the eager flow; launches per replay K2 20; graph "
-              f"{[round(w, 3) for w in walls['graph']]} ms per call, eager {e_ms:.3f} ms "
-              f"({e_ms / g_ms:.2f}x); capture and instantiation {cap['capture_s']:.3f} s "
-              f"after an eager first call of {cap['warmup_s']:.3f} s, pool "
-              f"{cap['pool_bytes'] / 2 ** 20:.1f} MB; per call graph / eager (nan: not "
-              f"profiled): device operations {ops['graph'][0]:.0f} / {e_ops[0]:.0f}, kernels "
-              f"{ops['graph'][1]:.3f} / {e_ops[1]:.3f} ms, host launches {host}; device idle "
-              f"{100 * (1 - ops['graph'][1] / g_ms):.1f}% / {100 * (1 - e_ops[1] / e_ms):.1f}%"
-              f" of the wall")
+        walls[mode].append((time.perf_counter() - t0) * 1e3)
+        if mode == "eager":
+            check(torch.equal(got, u), "tvl1_flow: the graph differs from eager")
+    cap = [st for st in flow_ops.GRAPHS.stats() if st["shapes"][0] == tuple(a.shape)][0]
+    g_ops, e_ops = (device_ops(lambda: fn(a, b))
+                    for fn in (tvl1_flow, flow_ops.tvl1_flow_eager))
+    g_ms, e_ms = float(np.median(walls["graph"])), walls["eager"][0]
+    print(f"[11 flow training] {card} | tvl1_flow {tuple(a.shape)} fine_iters 40: the "
+          f"captured graph torch.equal the eager flow; launches per replay K2 20; graph "
+          f"{[round(w, 3) for w in walls['graph']]} ms per call, eager {e_ms:.3f} ms "
+          f"({e_ms / g_ms:.2f}x); capture and instantiation {cap['capture_s']:.3f} s "
+          f"after an eager first call of {cap['warmup_s']:.3f} s, pool "
+          f"{cap['pool_bytes'] / 2 ** 20:.1f} MB; per call graph / eager: device operations "
+          f"{g_ops[0]} / {e_ops[0]}, kernels {g_ops[1]:.3f} / {e_ops[1]:.3f} ms, host "
+          f"launches {g_ops[2]} / {e_ops[2]}; device idle {100 * (1 - g_ops[1] / g_ms):.1f}% "
+          f"/ {100 * (1 - e_ops[1] / e_ms):.1f}% of the wall")
 
     # Card against CPU in f32, two translated smooth pairs at (2, 96, 128).
     rng = np.random.RandomState(3)
@@ -1789,7 +1792,7 @@ def phase_metrics(card: str, dev, engine, clips: np.ndarray):
         _grid_correspondences, cropping_score, distortion_score, fit_homographies,
         stability_score)
     from stabnet_tpu_torch.ops import cuda_warp
-    from stabnet_tpu_torch.ops.flow import tvl1_flow
+    from stabnet_tpu_torch.ops.flow import tvl1_flow_eager
     from stabnet_tpu_torch.stream import DeployOptions, StreamDriver
 
     cfg = engine.cfg
@@ -1818,9 +1821,10 @@ def phase_metrics(card: str, dev, engine, clips: np.ndarray):
     print(f"[12 metrics] {card} | {cfg.name} {cfg.compute_dtype} {clips.shape[2]}x"
           f"{clips.shape[3]} T={T}: S=1 StreamDriver with the input grays kept "
           f"{t1 - t0:.3f} s, score_stabilized_clip at {cfg.height // ds}x{cfg.width // ds} "
-          f"{t2 - t1:.3f} s ({flows} tvl1_flow calls of {_EVAL_CHUNK} pairs, fine_iters "
-          f"100), {t2 - t0:.3f} s per clip; launches {launches}; scores "
-          f"{ {k: round(v, 6) for k, v in scores.items()} }")
+          f"{t2 - t1:.3f} s with the chunks' captures ({flows} chunks of {_EVAL_CHUNK} "
+          f"pairs, a tvl1_flow at fine_iters 100 each), {t2 - t0:.3f} s per clip; launches "
+          f"{launches}; scores { {k: round(v, 6) for k, v in scores.items()} }")
+    metrics_graphs(card, dev, cfg, res, scores)
 
     # evaluate_clip card against CPU in f32 on the driver's own output at the
     # evaluation scale: its first 12 frames (one 32-pair chunk per flow pass)
@@ -1842,8 +1846,8 @@ def phase_metrics(card: str, dev, engine, clips: np.ndarray):
     t2 = time.perf_counter()
     gaps = {k: abs(on_card[k] - on_cpu[k]) for k in on_cpu}
     a, b = out_g[:-1], out_g[1:]
-    u = tvl1_flow(a, b, fine_iters=_FINE_ITERS)
-    u_cpu = tvl1_flow(a.cpu(), b.cpu(), fine_iters=_FINE_ITERS)
+    u = tvl1_flow_eager(a, b, fine_iters=_FINE_ITERS)
+    u_cpu = tvl1_flow_eager(a.cpu(), b.cpu(), fine_iters=_FINE_ITERS)
     shift, shift_cpu = _global_shift(a, b), _global_shift(a.cpu(), b.cpu())
     src, dst = _grid_correspondences(u)
     Hs = fit_homographies(src, dst)
@@ -1870,7 +1874,7 @@ def phase_metrics(card: str, dev, engine, clips: np.ndarray):
           f"{out_g.shape[1]}x{out_g.shape[2]}, rect {rect}: card "
           f"{ {k: round(v, 7) for k, v in on_card.items()} } in {t1 - t0:.3f} s, cpu "
           f"{ {k: round(v, 7) for k, v in on_cpu.items()} } in {t2 - t1:.3f} s, worst gap "
-          f"{max(gaps.values()):.3g} (need <= 1e-6). Where the devices part: tvl1_flow "
+          f"{max(gaps.values()):.3g} (need <= 1e-6). Where the devices part: tvl1_flow_eager "
           f"{tuple(u.shape)} fine_iters {_FINE_ITERS} max abs {flow_gap:.3g} (need 0), "
           f"_global_shift equal {all(map(torch.equal, (s.cpu() for s in shift), shift_cpu))} "
           f"(need True); on equal inputs fit_homographies max rel {fit_gap:.3g}, "
@@ -1883,6 +1887,99 @@ def phase_metrics(card: str, dev, engine, clips: np.ndarray):
     check(all(map(torch.equal, (s.cpu() for s in shift), shift_cpu)),
           "metrics: the phase correlation differs between card and CPU")
     check(max(gaps.values()) <= 1e-6, "metrics: card and CPU disagree")
+
+
+def metrics_graphs(card: str, dev, cfg, res, scores: dict) -> None:
+    """The metrics chunk's graphs, one per key, captured by phase 12's first
+    scoring: the clip scored again through them (its wall split into the
+    grays, the chunks and the rest) and with the eager chunks, every score
+    equal; each key's graph torch.equal the eager chunk on the eager
+    scoring's first chunk of that key, 20 K2 launches per replay, ms,
+    device operations and host launches per chunk, capture seconds and
+    pool bytes."""
+    import stabnet_tpu_torch.eval.metrics as metrics_module
+    from stabnet_tpu_torch.eval.metrics import (GRAPHS, _eval_grays, _pairs_h_chunk,
+                                                _pairs_h_chunk_eager, score_stabilized_clip)
+    from stabnet_tpu_torch.ops import cuda_warp
+
+    zero = {k: 0 for k in launch_counts()}
+    spent, first = {}, {}   # first: (prealign, rect given) -> inputs, result, ms
+
+    def timed_part(name, fn):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return call
+
+    def eager_chunk(a, b, rect=None, prealign=False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = _pairs_h_chunk_eager(a, b, None if rect is None else rect.to(a.device),
+                                 prealign=prealign)
+        torch.cuda.synchronize()
+        first.setdefault((prealign, rect is not None),
+                         (a, b, rect, h, (time.perf_counter() - t0) * 1e3))
+        return h
+
+    def score(chunk):
+        saved = metrics_module._pairs_h_chunk, metrics_module._eval_grays
+        metrics_module._pairs_h_chunk = timed_part("chunks", chunk)
+        metrics_module._eval_grays = timed_part("grays", _eval_grays)
+        spent.clear()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = score_stabilized_clip(res.frames, res.input_gray, (cfg.height, cfg.width),
+                                        crop_rect=res.crop_rect, device=dev)
+            wall = time.perf_counter() - t0
+            return out, (wall, spent["grays"], spent["chunks"],
+                         wall - spent["grays"] - spent["chunks"])
+        finally:
+            metrics_module._pairs_h_chunk, metrics_module._eval_grays = saved
+
+    graph_scores, graph_split = score(_pairs_h_chunk)
+    eager_scores, eager_split = score(eager_chunk)
+    check(graph_scores == scores == eager_scores,
+          f"metrics: scored through the graphs {graph_scores}, first {scores}, with the "
+          f"eager chunks {eager_scores}")
+    names = {(True, True): "output stability (prealign, rect)",
+             (True, False): "input stability (prealign)", (False, True): "cross-video (rect)"}
+    check(set(first) == set(names), f"metrics: chunk keys {sorted(first)}")
+    notes = []
+    for key, what in names.items():
+        a, b, r, want, eager_ms = first[key]
+        cuda_warp.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = _pairs_h_chunk(a, b, r, prealign=key[0])
+        torch.cuda.synchronize()
+        graph_ms = (time.perf_counter() - t0) * 1e3
+        per_call = launch_counts()
+        check(torch.equal(got, want), f"metrics chunk, {what}: the graph differs from eager")
+        check(per_call == zero | {"bilinear_sample": 20},
+              f"metrics chunk, {what}: launches per replay {per_call}")
+        ops, ms, host = device_ops(lambda: _pairs_h_chunk(a, b, r, prealign=key[0]))
+        note = (f"{what}: {graph_ms:.3f} ms per chunk as a graph against {eager_ms:.3f} "
+                f"eager; as a graph {ops} device operations ({ms:.3f} ms of them), {host} "
+                f"host launches")
+        if key == (True, True):   # one key eagerly: ~85,000 operations
+            ops, ms, host = device_ops(lambda: eager_chunk(a, b, r, prealign=True))
+            note += f"; eager {ops} ({ms:.3f} ms), {host} host launches"
+        notes.append(note)
+    graphs = [f"{st['key'][1:]} {st['shapes'][0]}: capture {st['capture_s']:.3f} s after an "
+              f"eager first call of {st['warmup_s']:.3f} s, pool {st['pool_bytes']} B, "
+              f"{st['replays']} replays" for st in GRAPHS.stats()]
+    check(len(graphs) == 3, f"metrics: {len(graphs)} chunk graphs, expected 3")
+    split = lambda t: f"{t[0]:.3f} s (the grays {t[1]:.3f}, the chunks {t[2]:.3f}, the rest {t[3]:.3f})"
+    print(f"[12 metrics graphs] {card} | the clip scored again through the chunks' graphs "
+          f"{split(graph_split)} and with the eager chunks {split(eager_split)}, every score "
+          f"equal; each key's graph torch.equal the eager chunk on the eager scoring's first "
+          f"chunk of that key, 20 K2 per replay: " + "; ".join(notes)
+          + ". Graphs (prealign, rect given): " + "; ".join(graphs))
 
 
 class IterTimes:
@@ -2252,15 +2349,51 @@ def phase_weights_in(card: str, dev, clips: np.ndarray, tmp: str, data: str):
 
 # --- export, data parallelism and sharded serving ----------------------------
 
+def exported_vs_program(served, grays: np.ndarray, colors: np.ndarray, what: str) -> None:
+    """`served`'s steps (graph replays) against its loaded step program
+    called eagerly on the card (as `load_stream_step` calls it), frame by
+    frame from the clips' first frame: every output and the state
+    torch.equal."""
+    from stabnet_tpu_torch.stream.export import initial_state
+
+    dev = served.device
+    state = served.init(grays[:, 0])
+    ref = initial_state(torch.from_numpy(grays[:, 0]).to(dev), served.cfg)
+    for t in range(1, grays.shape[1]):
+        state, out = served.step(state, grays[:, t], colors[:, t])
+        gray = torch.from_numpy(grays[:, t]).to(dev)
+        with torch.no_grad():
+            res = served._step(*ref, gray, torch.from_numpy(colors[:, t]).to(dev))
+        ref = type(ref)(*res[:4])
+        check(all(map(torch.equal, out, (*res[4:], gray))),
+              f"{what}: step {t} differs from the eager program")
+    check(all(map(torch.equal, state, ref)), f"{what}: the state differs from the eager program's")
+
+
 def phase_export(card: str, dev, engine, clips: np.ndarray):
     """The serving step exported at S=1 and, with a 2-frame segment, at
-    S=4; loaded from bytes and served against the live engine.  Returns the
-    launches of the exported S=1 clip and of the exported 4-clip batch."""
+    S=4; loaded from bytes and served (graph replays) against the programs
+    called eagerly and the live engine; the exported engine as it served
+    before its graphs timed beside both.  Returns the launches of the
+    exported S=1 clip and of the exported 4-clip batch."""
     from stabnet_tpu_torch.ops import cuda_warp
     from stabnet_tpu_torch.stream import DeployOptions, StreamDriver
+    from stabnet_tpu_torch.stream.engine import StepOutput, StreamState
     from stabnet_tpu_torch.stream.export import (ExportedEngine, export_scan_segment,
-                                                 export_stream_step, load_artifact,
-                                                 save_artifact)
+                                                 export_stream_step, initial_state,
+                                                 load_artifact, save_artifact)
+
+    class EagerExported(ExportedEngine):
+        """The exported engine as it served before its graphs: its loaded
+        step program called eagerly, as `load_stream_step` calls it, each
+        frame uploaded from pageable memory."""
+
+        def step(self, state, cur_gray, cur_color, history_override=None):
+            gray = torch.as_tensor(cur_gray).to(self.device)
+            with torch.no_grad():
+                res = self._step(*state, gray,
+                                 torch.as_tensor(self._resize(cur_color)).to(self.device))
+            return StreamState(*res[:4]), StepOutput(*res[4:], input_gray=gray)
 
     cfg, T, S, K = engine.cfg, clips.shape[1], clips.shape[0], 2
     zero = {k: 0 for k in launch_counts()}
@@ -2283,26 +2416,55 @@ def phase_export(card: str, dev, engine, clips: np.ndarray):
     served4 = ExportedEngine(step4, cfg, CLIP_HW, streams=S, scan_data=seg4, segment=K,
                              device=dev)
     t5 = time.perf_counter()
+    eager = EagerExported(blob, cfg, CLIP_HW, streams=1, device=dev)
+    marks = [("load the eager engine", time.perf_counter())]
 
     def same(a, b, what):
         for x, y in zip(a, b):
             check(np.array_equal(x.frames, y.frames) and np.array_equal(x.all_black, y.all_black)
                   and x.crop_rect == y.crop_rect, f"{what}: not bit for bit")
 
-    live, art = (StreamDriver(e, DeployOptions()) for e in (engine, served))
+    # The S=1 step's graph against the program called eagerly on the card.
+    grays1 = host_grays(clips[:1, :9], cfg)
+    exported_vs_program(served, grays1, clips[:1, :9], "exported S=1 step graph")
+    marks.append(("the step against the program", time.perf_counter()))
+    drivers = {"live": StreamDriver(engine, DeployOptions()),
+               "exported": StreamDriver(served, DeployOptions()),
+               "eager": StreamDriver(eager, DeployOptions())}
     runs = {}
-    for name in ("live", "exported", "exported", "live"):
-        driver = live if name == "live" else art
+    for name in ("live", "exported", "eager", "live"):
         cuda_warp.reset_launch_counts()
-        res = driver.stabilize_clip(clips[0])
+        res = drivers[name].stabilize_clip(clips[0])
         torch.cuda.synchronize()
         runs.setdefault(name, []).append((res, launch_counts()))
     want = zero | {"warp_mesh": T - 1, "warp_uint8_cf_lowres": T - 1}
     for name, rs in runs.items():
         for _, launches in rs:
             check(launches == want, f"{name} S=1 launches {launches}, expected {want}")
-    same([r for r, _ in runs["exported"]], [r for r, _ in runs["live"]],
-         "exported vs live S=1 clip")
+    for name in ("exported", "eager"):
+        same([r for r, _ in runs[name]], [r for r, _ in runs["live"]],
+             f"{name} vs live S=1 clip")
+    sync = StreamDriver(served, DeployOptions(pipelined=False)).stabilize_clip(clips[0])
+    same([sync], [runs["exported"][0][0]], "exported S=1 clip, synchronous vs pipelined")
+
+    marks.append(("the clips in turns and synchronous", time.perf_counter()))
+    # The S=4 segment's graph against the program called eagerly, with a
+    # stream frozen after 5 steps, then the batch against the live one.
+    g4 = host_grays(clips[:, :7], cfg)
+    valid = np.arange(6)[None] < np.array([[6], [6], [6], [5]])
+    state = served4.init(g4[:, 0])
+    ref = initial_state(torch.from_numpy(g4[:, 0]).to(dev), cfg)
+    for t in range(1, 7, K):
+        w, state = served4.continue_clip(state, g4[:, t:t + K], clips[:, t:t + K],
+                                         valid[:, t - 1:t - 1 + K])
+        with torch.no_grad():
+            res = served4._scan(*ref, *(torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in
+                                  (g4[:, t:t + K], clips[:, t:t + K], valid[:, t - 1:t - 1 + K])))
+        ref = type(ref)(*res[1:])
+        check(torch.equal(w, res[0]), f"exported S={S} segment graph: frames {t}-{t + K - 1} "
+              f"differ from the eager program")
+    check(all(torch.equal(getattr(state, f), getattr(ref, f)) for f in state._fields),
+          f"exported S={S} segment graph: the state differs from the eager program's")
     cuda_warp.reset_launch_counts()
     got = StreamDriver(served4, DeployOptions()).stabilize_batch(list(clips))
     torch.cuda.synchronize()
@@ -2310,27 +2472,37 @@ def phase_export(card: str, dev, engine, clips: np.ndarray):
     steps = -(-(T - 1) // K) * K
     want4 = zero | {"warp_mesh": steps, "warp_uint8_cf_lowres": steps}
     check(batch_launches == want4, f"segment batch launches {batch_launches}, expected {want4}")
-    same(got, live.stabilize_batch(list(clips), chunk=K), "exported segment vs live chunked batch")
+    same(got, drivers["live"].stabilize_batch(list(clips), chunk=K),
+         "exported segment vs live chunked batch")
+    marks.append(("the segment and the batch", time.perf_counter()))
     ops = {}
-    for name, e in (("live", engine), ("exported", served)):
+    for name, e in (("live", engine), ("exported", served), ("eager", eager)):
         wall, _, _, busy, per_frame, host, _, _ = profile_path(e, clips[0], frames=20,
                                                                device_gray=False)
         ops[name] = (wall, busy, per_frame, host)
+    marks.append(("the profiles", time.perf_counter()))
     lat = {n: ", ".join(f"{d['p50']:.3f}/{d['p90']:.3f}"
                         for d in (stage_percentiles(r) for r, _ in rs))
            for n, rs in runs.items()}
+    graphs = [f"{st['key']} {st['shapes'][0]}: capture {st['capture_s']:.3f} s, pool "
+              f"{st['pool_bytes']} B" for e in (served, served4) for st in e.graphs.stats()]
     print(f"[16 export] {card} | {cfg.name} {cfg.compute_dtype} {CLIP_HW[0]}p: export S=1 step "
           f"{t1 - t0:.2f} s ({len(step1)} B), S={S} step + {K}-frame segment {t2 - t1:.2f} s "
           f"({len(step4)} + {len(seg4)} B); load from bytes S=1 {t4 - t3:.2f} s, S={S} with "
-          f"segment {t5 - t4:.2f} s; the {T}-frame clip through StreamDriver on the exported "
-          f"engine equal to the live one bit for bit (crop {runs['exported'][0][0].crop_rect}), "
-          f"launches {runs['exported'][0][1]}; the {S}-clip batch on the segment equal to the "
-          f"live batch chunked by {K}, launches {batch_launches}; net ms p50/p90 in turns "
-          f"live, exported, exported, live: live {lat['live']}, exported {lat['exported']}; "
-          f"host grays, 20 frames: " + "; ".join(
+          f"segment {t5 - t4:.2f} s; the S=1 step's graph torch.equal the program called "
+          f"eagerly over 8 frames, the S={S} segment's over 3 segments with a stream frozen; "
+          f"the {T}-frame clip through StreamDriver on the exported engine (graphs, and "
+          f"eager) equal to the live one bit for bit (crop {runs['exported'][0][0].crop_rect}), "
+          f"pipelined equal to synchronous, launches {runs['exported'][0][1]}; the {S}-clip "
+          f"batch on the segment equal to the live batch chunked by {K}, launches "
+          f"{batch_launches}; net ms p50/p90 in turns live, exported graph, exported eager, "
+          f"live: live {lat['live']}, exported graph {lat['exported']}, exported eager "
+          f"{lat['eager']}; host grays, 20 frames: " + "; ".join(
               f"{n} wall {w:.3f} ms/frame, kernels {b:.3f} ms/frame, device operations "
-              f"{o:.1f}/frame, host launches {h:.1f}/frame" for n, (w, b, o, h) in ops.items()))
-    del served, served4
+              f"{o:.1f}/frame, host launches {h:.1f}/frame" for n, (w, b, o, h) in ops.items())
+          + "; graphs: " + "; ".join(graphs) + "; seconds: " + ", ".join(
+              f"{n} {b - a:.1f}" for (_, a), (n, b) in zip([("", t5)] + marks, marks)))
+    del served, served4, eager
     return runs["exported"][0][1], batch_launches
 
 
@@ -2397,6 +2569,9 @@ def phase_export_platforms(card: str, dev, engine, clips: np.ndarray, tmp: str):
             served = ExportedEngine.from_artifact(blob, meta, device=device)
             res, launches = serve_clip(served, clip)
             same(res, ref, f"traced on {traced}, the {device} program")
+            if device == "cuda":
+                exported_vs_program(served, host_grays(clips[:1, :5], cfg), clips[:1, :5],
+                                    f"traced on {traced}, the cuda program's graph")
             check(launches == (want if device == "cuda" else zero),
                   f"traced on {traced}, the {device} program: launches {launches}")
             runs[device] = launches
@@ -2406,6 +2581,7 @@ def phase_export_platforms(card: str, dev, engine, clips: np.ndarray, tmp: str):
         notes.append(f"traced on {traced} for {' '.join(platforms)}: {wall:.2f} s through the "
                      f"CLI with --selftest, {os.path.getsize(path)} B, programs "
                      f"{dict(zip(platforms, [n for _, n in spans]))} B; the cuda program's "
+                     f"graph torch.equal the program called eagerly over 4 frames, its "
                      f"{T}-frame clip bit for bit the live card engine, launches "
                      f"{runs['cuda']}; the cpu program's {T_CPU}-frame clip bit for bit the "
                      f"live CPU engine, launches {runs['cpu']}")

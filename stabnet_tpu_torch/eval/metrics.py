@@ -19,6 +19,11 @@ device it is given, CUDA by default (the JAX package pins it to the host
 CPU), and `score_stabilized_clip` uses no OpenCV (the output frames go to
 gray on the device through `stream.engine.gray_from_color`, the input's
 down-scale is an area average, which is what OpenCV's INTER_AREA computes).
+
+On the card each chunk of frame pairs (`_pairs_h_chunk`, the JAX package's
+jitted chunk, stabnet_tpu/eval/metrics.py:399-444) replays one captured
+CUDA graph per (prealign, rect given) and shape (utils/graphs.py); the CPU
+runs the same body eagerly.
 """
 
 from __future__ import annotations
@@ -30,8 +35,9 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from stabnet_tpu_torch.ops.flow import tvl1_flow
-from stabnet_tpu_torch.utils import resolve_device
+from stabnet_tpu_torch.ops.flow import tvl1_flow_eager
+from stabnet_tpu_torch.utils import device_constant, resolve_device
+from stabnet_tpu_torch.utils.graphs import GraphCache
 
 
 # The correspondence grid's spacing and border margin, pixels.
@@ -212,6 +218,13 @@ def _hann(n: int) -> np.ndarray:
     return (0.5 * (1 - torch.cos(2 * np.pi * k / (n - 1)))).numpy()
 
 
+@functools.lru_cache(maxsize=None)
+def _hann_on(n: int, device: torch.device) -> torch.Tensor:
+    """`_hann(n)` as a device constant, made at the first call on `device`
+    (an eager one: a captured chunk reads it, it never uploads it)."""
+    return device_constant(_hann(n), device)
+
+
 # Phase-correlation peaks farther than this fraction of a side are rejected.
 _MAX_SHIFT_FRAC = 0.3
 
@@ -225,8 +238,7 @@ def _global_shift(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch
     """
     H, W = a.shape[1:]
     dev = a.device
-    win = (torch.from_numpy(_hann(H)).to(dev)[:, None]
-           * torch.from_numpy(_hann(W)).to(dev)[None, :]).to(a.dtype)
+    win = (_hann_on(H, dev)[:, None] * _hann_on(W, dev)[None, :]).to(a.dtype)
     fa = torch.fft.rfft2(a * win)
     fb = torch.fft.rfft2(b * win)
     cross = fb * fa.conj()
@@ -263,23 +275,26 @@ def _roll2(x: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor) -> torch.Tensor:
 _EVAL_CHUNK = 32
 
 
-def _pairs_h_chunk(a: torch.Tensor, b: torch.Tensor,
-                   rect: Optional[torch.Tensor] = None,
-                   prealign: bool = False) -> torch.Tensor:
-    """(C, H, W) frame pairs -> (C, 3, 3) homographies mapping a -> b.
+def _pairs_h_chunk_eager(a: torch.Tensor, b: torch.Tensor,
+                         rect: Optional[torch.Tensor] = None,
+                         prealign: bool = False) -> torch.Tensor:
+    """(C, H, W) frame pairs -> (C, 3, 3) homographies mapping a -> b, one
+    operation at a time (the CPU path, and the body the graphs capture).
 
     `rect` (a (4,) [top, left, bottom, right] tensor) restricts the fit to
     correspondences landing inside it.  `prealign` removes the global
     integer shift by phase correlation first and adds it back after the
     TV-L1 refinement; grid points whose pre-aligned source wraps around the
-    frame edge are weighted out of the fit.
+    frame edge are weighted out of the fit.  No value goes to the host, and
+    the flow is `tvl1_flow_eager` (its own graph cannot be taken inside
+    another's capture), so the whole chunk is one graph.
     """
     H, W = a.shape[1:]
     w = None
     if prealign:
         sx, sy = _global_shift(a, b)
         b = _roll2(b, sx, sy)
-    u = tvl1_flow(a, b, fine_iters=_FINE_ITERS)
+    u = tvl1_flow_eager(a, b, fine_iters=_FINE_ITERS)
     src, dst = _grid_correspondences(u)
     if prealign:
         dst = dst + torch.stack([sx, sy], dim=-1)[:, None, :].to(dst.dtype)
@@ -295,10 +310,42 @@ def _pairs_h_chunk(a: torch.Tensor, b: torch.Tensor,
     return fit_homographies(src, dst, w)
 
 
+# The metrics chunk's captured graphs, one per (prealign, rect given) and
+# chunk shape, for the whole process (as the JAX package's jit cache is).
+# One pool for all: the chunks run one at a time and each result is copied
+# out before the next call.
+GRAPHS = GraphCache(shared_pool=True)
+
+
+def _pairs_h_chunk(a: torch.Tensor, b: torch.Tensor,
+                   rect: Optional[torch.Tensor] = None,
+                   prealign: bool = False) -> torch.Tensor:
+    """`_pairs_h_chunk_eager`'s homographies (its arguments, its result bit
+    for bit), copied out.
+
+    On CUDA frames it replays the captured CUDA graph of the whole chunk
+    (phase correlation, flow pyramid, grid and fit) for (prealign, whether
+    a rect is given) and the frames' shape (`GRAPHS`, the counterpart of
+    the JAX package's `jax.jit` of `_pairs_h_chunk`), captured at the first
+    such call, which runs eagerly.  The rect is an input of the graph, as
+    it is a traced argument in JAX, so per-clip rects share one graph; a
+    host rect goes in through a pinned stage.  On CPU frames the cache runs
+    `_pairs_h_chunk_eager`.
+    """
+    inputs = (a, b) if rect is None else (a, b, rect)
+
+    def fn(a, b, rect=None):
+        return (_pairs_h_chunk_eager(a, b, rect, prealign=prealign),)
+
+    with torch.no_grad(), GRAPHS.lock:
+        (h,) = GRAPHS(("pairs_h_chunk", prealign, rect is not None), fn, inputs, a.device)
+        return h.clone()
+
+
 def _pairs_h(a: torch.Tensor, b: torch.Tensor, rect=None,
              prealign: bool = False) -> torch.Tensor:
     if rect is not None:
-        rect = torch.tensor([float(v) for v in rect], device=a.device)
+        rect = torch.tensor([float(v) for v in rect], dtype=torch.float32)
     out = []
     for s in range(0, a.shape[0], _EVAL_CHUNK):
         ca, cb = a[s:s + _EVAL_CHUNK], b[s:s + _EVAL_CHUNK]

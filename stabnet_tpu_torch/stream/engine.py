@@ -351,9 +351,10 @@ class _GraphState:
     stream count on one device (a graph bakes in its buffers' addresses).
 
     A `StreamState` is copied in (`load`) unless it is the one whose values
-    this holds already, and the values a step changed are copied back into
-    its own tensors (`store`), so every state keeps its own buffers, as in
-    the eager step, and several states may be stepped in turns."""
+    this holds already (the state `store` returned, known by the identity
+    of its fields), and the values a step changed are copied back into its
+    own tensors (`store`), so every state keeps its own buffers, as in the
+    eager step, and several states may be stepped in turns."""
 
     def __init__(self, S: int, cfg: StabNetConfig, device: torch.device):
         L, H, W = cfg.history_len, cfg.height, cfg.width
@@ -367,8 +368,7 @@ class _GraphState:
 
     def load(self, state: StreamState) -> None:
         held = self._holds
-        if (held is not None and held.ptr == state.ptr and held.frames is state.frames
-                and held.masks is state.masks and held.all_black is state.all_black):
+        if held is not None and all(x is y for x, y in zip(held, state)):
             return
         own = self.state
         own.frames.copy_(state.frames)

@@ -29,6 +29,12 @@ Signatures, with S streams, H x W the model scale and Ho x Wo the output:
            (S, K, Ho, Wo, 3), valid (S, K) bool)
            -> (warped (S, K, Ho, Wo, 3), frames', masks', ptr', all_black')
 
+`ExportedEngine` serves the loaded programs: on CUDA each replays one
+captured CUDA graph (utils/graphs.py) of the step and of the segment, the
+counterpart of the JAX package's `jax.jit(exported.call)`; on the CPU the
+programs run eagerly.  `load_stream_step` is the plain call, the reference
+the graphs are held to.
+
 The artifact file is the JAX package's layout: a magic line, a 4-byte
 length, a JSON header (`config`, `out_hw`, `streams`, `refine`,
 `platforms`, and with a baked segment `segment`), then the payloads.  Here
@@ -51,7 +57,9 @@ from torch import nn
 
 from stabnet_tpu_torch.config import StabNetConfig
 from stabnet_tpu_torch.stream.engine import (StepOutput, StreamEngine, StreamState,
-                                             functional_step, init_state)
+                                             _GraphState, _tensor, functional_step,
+                                             init_state)
+from stabnet_tpu_torch.utils.graphs import GraphCache
 
 FORMAT = "torch.export"
 _MAGIC = b"STBX1\n"
@@ -282,6 +290,26 @@ def select_program(payload: bytes, meta: dict, device) -> Tuple[bytes, Optional[
     return part("step"), part("segment")
 
 
+class _ExportedState(_GraphState):
+    """`_GraphState` for the exported programs' state, whose ring pointer
+    is a 0-d int64 device tensor: the slots a call wrote are copied back at
+    the device pointer, so nothing is read from the device."""
+
+    def store(self, state: StreamState, steps: int) -> StreamState:
+        L = state.frames.shape[1]
+        own = self.state
+        if steps >= L:
+            state.frames.copy_(own.frames)
+            state.masks.copy_(own.masks)
+        else:
+            slots = (state.ptr + torch.arange(steps, device=state.ptr.device)) % L
+            state.frames.index_copy_(1, slots, own.frames.index_select(1, slots))
+            state.masks.index_copy_(1, slots, own.masks.index_select(1, slots))
+        state.all_black.copy_(own.all_black)
+        self._holds = state._replace(ptr=own.ptr.clone())
+        return self._holds
+
+
 class ExportedEngine:
     """A `StreamDriver` engine backed by an artifact's programs for one
     device (`from_artifact`): `stabilize --from-export`.  It serves the
@@ -289,7 +317,21 @@ class ExportedEngine:
     live engine, and the stream count and segment length are the baked
     ones.  Color frames of another size are resized on the host to the
     baked `out_hw`.  `continue_clip` exists only when a segment is baked
-    (the driver's chunked and streaming modes look for it)."""
+    (the driver's chunked and streaming modes look for it).
+
+    A step (and a segment) runs the loaded program on state buffers the
+    engine holds (`_ExportedState`), through `graphs`: on CUDA one captured
+    CUDA graph of the step and one of the segment (the JAX package's
+    `jax.jit(exported.call)`, stabnet_tpu/stream/export.py:159-164),
+    captured at the first call, which runs eagerly, with the frames going
+    in through pinned stages; on the CPU the program itself.  The program
+    is functional; the captured body copies its new state back into the
+    held buffers, and, as in the live engine, the ring slots a call wrote
+    are copied into the given state's tensors, which the returned state
+    shares.  The outputs are copied out of the graph's buffers, so each
+    stays valid.  The values are the program's (`load_stream_step`) bit
+    for bit.
+    """
 
     def __init__(self, data: bytes, cfg: StabNetConfig, out_hw: Tuple[int, int],
                  streams: int = 1, scan_data: Optional[bytes] = None,
@@ -300,9 +342,11 @@ class ExportedEngine:
         self.cfg = cfg
         self.out_hw = (int(out_hw[0]), int(out_hw[1]))
         self.streams = int(streams)
-        self._step = load_stream_step(data)
+        self._step = _load_program(data)
         self._scan = _load_program(scan_data) if scan_data else None
         self.segment = int(segment) if scan_data else None
+        self.graphs = GraphCache(shared_pool=True)
+        self._state = _ExportedState(self.streams, cfg, self.device)
         if self._scan is not None:
             self.continue_clip = self._continue_clip
 
@@ -315,9 +359,6 @@ class ExportedEngine:
         step, scan = select_program(payload, meta, "cuda" if device is None else device)
         return cls(step, get_config(meta["config"]), meta["out_hw"], streams=meta["streams"],
                    scan_data=scan, segment=meta.get("segment"), device=device)
-
-    def _put(self, a) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a)).to(self.device)
 
     def _check_streams(self, S: int) -> None:
         if S != self.streams:
@@ -335,9 +376,31 @@ class ExportedEngine:
         out = np.stack([StreamDriver._resize_color(f, self.out_hw) for f in flat])
         return out.reshape(color.shape[:-3] + out.shape[1:])
 
+    def _call(self, state: StreamState, kind: str, program, inputs, steps: int):
+        """`program(*held state, *inputs)` through the graph of `kind` and
+        the inputs' shapes: the new state written back into the held
+        buffers inside the call; returns (the outputs copied out, `state`
+        advanced by `steps`)."""
+        own = self._state.state
+
+        def fn(*args):
+            res = program(*own, *args)
+            if kind == "step":   # the step's gray is its output's input_gray
+                new, outs = res[:4], (*res[4:], args[0])
+            else:
+                new, outs = res[1:], res[:1]
+            for dst, src in zip(own, new):
+                dst.copy_(src)
+            return outs
+
+        with torch.inference_mode(), self.graphs.lock:
+            self._state.load(state)
+            outs = self.graphs(kind, fn, inputs, self.device)
+            return tuple(t.clone() for t in outs), self._state.store(state, steps)
+
     def init(self, first_gray: np.ndarray) -> StreamState:
         self._check_streams(len(first_gray))
-        return initial_state(self._put(first_gray), self.cfg)
+        return initial_state(_tensor(first_gray).to(self.device), self.cfg)
 
     def step(self, state: StreamState, cur_gray: Optional[np.ndarray], cur_color: np.ndarray,
              history_override: Optional[np.ndarray] = None):
@@ -350,7 +413,9 @@ class ExportedEngine:
             raise ValueError("--device-gray needs a live engine: the artifact's step "
                              "takes the model-scale gray as an input")
         self._check_streams(len(cur_color))
-        return self._step(state, self._put(cur_gray), self._put(self._resize(cur_color)))
+        outs, state = self._call(state, "step", self._step,
+                                 (_tensor(cur_gray), _tensor(self._resize(cur_color))), 1)
+        return state, StepOutput(*outs)
 
     def _continue_clip(self, state: StreamState, clip_gray: np.ndarray,
                        clip_color: np.ndarray, valid: Optional[np.ndarray] = None):
@@ -365,10 +430,10 @@ class ExportedEngine:
                 f"streams in {self.segment}-frame segments, or re-export with "
                 f"--streams/--segment")
         valid = np.ones((S, K), bool) if valid is None else np.asarray(valid, bool)
-        with torch.no_grad():
-            res = self._scan(*state, self._put(clip_gray), self._put(self._resize(clip_color)),
-                             self._put(valid))
-        return res[0], StreamState(*res[1:])
+        (warped,), state = self._call(
+            state, "segment", self._scan,
+            (_tensor(clip_gray), _tensor(self._resize(clip_color)), _tensor(valid)), K)
+        return warped, state
 
     def stabilize_clip(self, clip_gray: np.ndarray, clip_color: np.ndarray,
                        valid: Optional[np.ndarray] = None):
@@ -394,12 +459,12 @@ class ExportedEngine:
                 chunks.append(warped[:, :k])
                 t += k
             return torch.cat(chunks, dim=1), state
-        ends = v_full.sum(axis=1)           # each stream's last valid step
+        # Each stream's last valid step, on the device once per clip.
+        ends = torch.as_tensor(v_full.sum(axis=1)).to(self.device)
         frozen = torch.zeros_like(state.all_black)
         warped = []
         for t in range(1, T):
             state, out = self.step(state, clip_gray[:, t], clip_color[:, t])
             warped.append(out.warped_color)
-            done = torch.as_tensor(ends == t, device=frozen.device)
-            frozen = torch.where(done[:, None, None], state.all_black, frozen)
+            frozen = torch.where((ends == t)[:, None, None], state.all_black, frozen)
         return torch.stack(warped, dim=1), types.SimpleNamespace(all_black=frozen)
