@@ -134,13 +134,28 @@ nonzero exit):
      called eagerly over 4 frames; each CPU program 2 frames with no
      kernel launched);
  17. data parallel: `train --data-parallel` through the CLI on phase 8's
-     shards for 2 steps in rank processes of this script, the three runs
-     at once: (a) one NCCL rank
+     shards for 2 steps in rank processes of this script, the runs at
+     once: (a) one NCCL rank
      under torch.distributed.run against the plain run, v2_93 bf16 batch
-     10, bit for bit (cuDNN's deterministic algorithms in both); (b) two
-     gloo ranks on the one card, global batch 10, against one process on
-     the merged batch in f32 (TF32 off), within the CPU test's rtol 3.4e-3;
-     K2 2, K4 1 and K6b 1 launches per rank per step, ms per step of each;
+     10, bit for bit (cuDNN's deterministic algorithms in both), both
+     replaying graphs (each train step through the compiled path); (a')
+     one NCCL rank in a process of its own (`chip_smoke.py _dp_graph GO`),
+     on BatchNorm's own branch and with its across-ranks branch forced
+     (`resnet._ranks` patched to 2 in that process, so its all-reduces run
+     and are captured): phase 9's check there (f32, TF32 off, batch 2, six
+     gate-crossing steps, the graph torch.equal the eager step under the
+     deterministic algorithms) and the eval graph against eval_step; then,
+     once the other runs have ended, v2_93 bf16 batch 10 synchronized
+     ms/step p50 over 10 steps in turns graph, eager, graph, and per step
+     device operations, NCCL kernels (equal in the graph and eager) and
+     host launches, capture seconds and pool bytes; (b) two gloo ranks on
+     the one card, eager, global batch 10, against one process on the
+     merged batch in f32 (TF32 off), within the CPU test's rtol 3.4e-3;
+     (c) with two or more cards, two NCCL ranks on two cards replaying
+     graphs, bit for bit the same ranks kept eager (`_compiled` patched in
+     their processes), and within that bound of the merged batch, else
+     "(c) not run: 1 card"; K2 2, K4 1 and K6b 1 launches per rank per
+     step, ms per step of each;
  18. sharded serving: stabilize_clips_sharded over two replicas on the card
      at S=4 against each shard's own run at S=2 and the eager scan_frames
      there (frames, ring, all_black, crop), and the driver's sharded
@@ -185,7 +200,10 @@ cause (its normal equations summed in float64 on both devices).  Each
 phase prints its seconds ("[N seconds]"), and a line before the kernels
 line sums them.
 `python3 chip_smoke.py _dp_rank MODE ARGS...` is phase 17's rank process,
-`python3 chip_smoke.py _gate ARGS...` phase 22's.
+`python3 chip_smoke.py _dp_graph GO` its (a'), `python3 chip_smoke.py
+_gate ARGS...` phase 22's; `python3 chip_smoke.py _dp_only` runs phase 17
+alone after phase 1 and phase 8's shards (for a machine with several cards,
+where (c) runs; it prints no kernels line).
 The line before the last is a JSON object with every kernel's numbers; the
 last line is {"ok": true, "device": {...}}.  Needs CUDA and the repository
 beside it; imports nothing of JAX.
@@ -1146,6 +1164,17 @@ def phase_grad_kernels(gen: torch.Generator, dev) -> dict:
     return worst
 
 
+def make_shards(tmp: str) -> str:
+    """`make-synthetic` of 20 v2_93 examples through the port's CLI into
+    `tmp`/data/train; returns `tmp`/data."""
+    from stabnet_tpu_torch.cli.main import main as cli
+
+    data = os.path.join(tmp, "data")
+    cli(["make-synthetic", "--out", os.path.join(data, "train"), "--num", "20",
+         "--config", "v2_93", "--seed", "0"])
+    return data
+
+
 def phase_train_path(tmp: str):
     """`make-synthetic` + `train` through the port's CLI at v2_93 bf16,
     batch 10: 4 steps, then --restore to step 6."""
@@ -1154,11 +1183,9 @@ def phase_train_path(tmp: str):
     from stabnet_tpu_torch.ops import cuda_warp
     from stabnet_tpu_torch.train import checkpoint as ckpt
 
-    data = os.path.join(tmp, "data")
     model_dir, log_dir = os.path.join(tmp, "models"), os.path.join(tmp, "log")
     t0 = time.perf_counter()
-    cli(["make-synthetic", "--out", os.path.join(data, "train"), "--num", "20",
-         "--config", "v2_93", "--seed", "0"])
+    data = make_shards(tmp)
     make_s = time.perf_counter() - t0
     base = ["train", "--config", "v2_93", "--data", data, "--model-dir", model_dir,
             "--log-dir", log_dir, "--seed", "0", "--set", "disp_freq=1", *TRAIN_LIVE]
@@ -1322,7 +1349,7 @@ def run_gap(a, b) -> dict:
     return {"loss_rel": loss, "params_abs": params, "moments_abs": moments}
 
 
-def phase_train_graph(card: str, dev):
+def train_graph_run(dev, eager_spread: bool = True):
     """The compiled training step against the eager one: v2_93 f32, batch
     2, six steps across every gate and a learning-rate step from one seeded
     state, exactly one captured training graph, K2 2, K4 1 and K6b 1 per
@@ -1330,7 +1357,11 @@ def phase_train_graph(card: str, dev):
     must equal the eager run; else both run under cuDNN's and torch's
     deterministic algorithms and must be equal there, the default mode's
     eager spread reported beside; where deterministic mode cannot run an
-    operation, the graph is held to 3x the eager spread."""
+    operation, the graph is held to 3x the eager spread.  Without
+    `eager_spread` the two default-mode eager runs are skipped and the rule
+    is the deterministic one.  Returns a summary (its "problems" empty if
+    every check held), the graph run's state, the config and the
+    batches."""
     from stabnet_tpu_torch.data import augment_batch, make_raw_batch, prepare_raw
 
     cfg = live_config(compute_dtype="float32", batch_size=2).replace(**GATE_CROSSING)
@@ -1338,16 +1369,20 @@ def phase_train_graph(card: str, dev):
                              {k: torch.from_numpy(v).to(dev) for k, v in
                               prepare_raw(make_raw_batch(cfg, 2, seed=s)).items()}, cfg)
                for s in range(6)]
-    e1, _ = train_run(cfg, batches, dev, compiled=False)
-    e2, _ = train_run(cfg, batches, dev, compiled=False)
-    spread = run_gap(e1, e2)
-    rule = "equal" if not any(spread.values()) else "deterministic"
+    e1, spread, rule = None, None, "deterministic"
+    if eager_spread:
+        e1, _ = train_run(cfg, batches, dev, compiled=False)
+        e2, _ = train_run(cfg, batches, dev, compiled=False)
+        spread = run_gap(e1, e2)
+        rule = "equal" if not any(spread.values()) else "deterministic"
     if rule == "deterministic":
         torch.backends.cudnn.deterministic = True
         torch.use_deterministic_algorithms(True)
         try:
             eager, _ = train_run(cfg, batches, dev, compiled=False)
         except RuntimeError as e:
+            if e1 is None:
+                raise
             print(f"[9 train graph] deterministic mode refused an operation: {e}")
             rule, eager = "3x spread", e1
         finally:
@@ -1370,25 +1405,41 @@ def phase_train_graph(card: str, dev):
         ok = all(gap[k] <= 3 * spread[k] for k in gap)
     else:
         ok = not any(gap.values())
-    stats = state.graphs.stats()
+    stats = [{k: v for k, v in st.items() if k not in ("key", "shapes")}
+             for st in state.graphs.stats()]
     want = {"bilinear_sample": 12, "warp_mesh": 0, "warp_uint8_cf_lowres": 0,
             "warp_uint8_cf": 0, "bilinear_splat": 6, "sample_map_grad": 6}
-    temps = [float(r[0]["temp"]) for r in graph]
+    counters = (state.step, int(state.step_t), state.opt.count, int(state.opt.count_t))
+    problems = []
+    if not ok:
+        problems.append(f"the training graph and the eager step differ under rule {rule!r}: "
+                        f"{gap}")
+    if not (len(stats) == 1 and stats[0]["replays"] == 5):
+        problems.append(f"training graphs {stats}")
+    if launches != want:
+        problems.append(f"graph launches {launches}, expected {want}")
+    if counters != (6, 6, 6, 6):
+        problems.append(f"counters {counters}")
+    summary = {"rule": rule, "spread": spread, "gap": gap, "graph": stats[0],
+               "launches": launches, "counters": counters,
+               "temps": [float(graph[0][0]["temp"]), float(graph[-1][0]["temp"])],
+               "problems": problems}
+    return summary, state, cfg, batches
+
+
+def phase_train_graph(card: str, dev):
+    """`train_graph_run` in this process (no process group)."""
+    r, _, _, _ = train_graph_run(dev)
+    st = r["graph"]
     print(f"[9 train graph] {card} | v2_93 f32 batch 2, 6 steps across every gate "
-          f"(temp {temps[0]:.3g} at step 0, {temps[-1]:.6g} at 5) and a learning-rate "
-          f"step: rule {rule!r} (default-mode eager against eager: {spread}); graph against "
-          f"eager {gap}; {len(state.graphs)} training graph(s), {stats[0]['replays']} "
-          f"replays, eager first call {stats[0]['warmup_s']:.3f} s, capture "
-          f"{stats[0]['capture_s']:.3f} s, pool {stats[0]['pool_bytes']} B; launches "
-          f"{launches}; counters step {state.step}/{int(state.step_t)}, Adam "
-          f"{state.opt.count}/{int(state.opt.count_t)}")
-    check(ok, f"the training graph and the eager step differ under rule {rule!r}: {gap}")
-    check(len(state.graphs) == 1 and stats[0]["replays"] == 5,
-          f"training graphs {stats}")
-    check(launches == want, f"graph launches {launches}, expected {want}")
-    check((state.step, int(state.step_t), state.opt.count, int(state.opt.count_t))
-          == (6, 6, 6, 6), "counters")
-    return rule
+          f"(temp {r['temps'][0]:.3g} at step 0, {r['temps'][1]:.6g} at 5) and a "
+          f"learning-rate step: rule {r['rule']!r} (default-mode eager against eager: "
+          f"{r['spread']}); graph against eager {r['gap']}; 1 training graph, "
+          f"{st['replays']} replays, eager first call {st['warmup_s']:.3f} s, capture "
+          f"{st['capture_s']:.3f} s, pool {st['pool_bytes']} B; launches {r['launches']}; "
+          f"counters step/step_t/count/count_t {r['counters']}")
+    check(not r["problems"], "; ".join(r["problems"]))
+    return r["rule"]
 
 
 def profile_steps(step, steps: int = 3):
@@ -1658,6 +1709,13 @@ def device_ops(fn):
     `key_averages`, whose per-event Python objects take tens of seconds over
     an eager flow's or metrics chunk's 72,000-85,000 operations (the two
     counts agreed within 0.5 % in calls B14 and C14)."""
+    device, host = device_events(fn)
+    return len(device), sum(e.duration_ns() for e in device) / 1e6, host
+
+
+def device_events(fn):
+    """`device_ops`' profile of one call of `fn`: the raw device events and
+    the number of host launches."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1665,8 +1723,7 @@ def device_ops(fn):
         fn()
         torch.cuda.synchronize()
     events = prof.profiler.kineto_results.events()
-    device = [e for e in events if e.device_type() == torch.autograd.DeviceType.CUDA]
-    return (len(device), sum(e.duration_ns() for e in device) / 1e6,
+    return ([e for e in events if e.device_type() == torch.autograd.DeviceType.CUDA],
             sum(1 for e in events if e.name() in HOST_LAUNCHES))
 
 
@@ -2591,23 +2648,41 @@ def phase_export_platforms(card: str, dev, engine, clips: np.ndarray, tmp: str):
     return moved_launches
 
 
-DP_RANK = "_dp_rank"   # argv[1] of a rank process that phase 17 starts
+DP_RANK = "_dp_rank"     # argv[1] of a rank process that phase 17 starts
+DP_GRAPH = "_dp_graph"   # argv[1] of phase 17 (a')'s rank process
+DP_ONLY = "_dp_only"     # argv[1] for phase 17 alone (after phase 1 and the shards)
 
 
 def dp_rank(mode: str, argv) -> int:
     """One process of phase 17: the port's CLI with `argv`, then its kernel
-    launches as a JSON line.  `mode` "det" asks cuDNN for its deterministic
-    algorithms (two processes then compare bit for bit); "f32" turns TF32
-    off (the comparison in float32 that the CPU test makes)."""
+    launches as a JSON line and the train steps that went through the
+    compiled path (`_replay`).  `mode` is words joined by "+": "det" asks
+    cuDNN for its deterministic algorithms (two processes then compare bit
+    for bit); "f32" turns TF32 off (the comparison in float32 that the CPU
+    test makes); "eager" keeps the steps eager in this process (the eager
+    NCCL ranks that (c) holds the graph ranks to)."""
     from stabnet_tpu_torch.cli.main import main as cli
+    from stabnet_tpu_torch.train import train as train_mod
 
-    torch.backends.cudnn.deterministic = mode == "det"
-    torch.backends.cudnn.allow_tf32 = mode != "f32"
+    words = mode.split("+")
+    torch.backends.cudnn.deterministic = "det" in words
+    torch.backends.cudnn.allow_tf32 = "f32" not in words
     torch.backends.cuda.matmul.allow_tf32 = False
+    if "eager" in words:
+        train_mod._compiled = lambda state: False
+    keys, replay = [], train_mod._replay
+
+    def counted(state, key, *args):
+        keys.append(key[0])
+        return replay(state, key, *args)
+
+    train_mod._replay = counted
     cli(argv)
     torch.cuda.synchronize()
-    print("LAUNCHES " + json.dumps({"rank": int(os.environ.get("RANK", 0)),
-                                    **launch_counts()}), flush=True)
+    rank = int(os.environ.get("RANK", 0))
+    print("LAUNCHES " + json.dumps({"rank": rank, **launch_counts()}), flush=True)
+    print("COMPILED " + json.dumps({"rank": rank, "train_steps": keys.count("train_step")}),
+          flush=True)
     return 0
 
 
@@ -2624,25 +2699,26 @@ def free_ports(n: int):
             s.close()
 
 
-def start_ranks(nproc, mode: str, argv, port=None):
-    """Start `argv` through the CLI in `nproc` ranks under
+def start_ranks(nproc, entry, port=None, env=None):
+    """Start this script with the arguments `entry` (`[DP_RANK, mode,
+    *argv]` or `[DP_GRAPH, ...]`) in `nproc` ranks under
     torch.distributed.run at `port` (nproc None: one process without a
-    launcher); `finish_ranks` waits for it."""
+    launcher), with `env` added to the environment; `finish_ranks` waits
+    for it."""
     here = os.path.abspath(__file__)
-    cmd = [sys.executable, here, DP_RANK, mode, *argv]
+    cmd = [sys.executable, here, *entry]
     if nproc is not None:
         port = port or free_ports(1)[0]
         cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(nproc),
-               "--master-addr", "localhost", "--master-port", str(port), here, DP_RANK, mode,
-               *argv]
+               "--master-addr", "localhost", "--master-port", str(port), here, *entry]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                            cwd=os.path.dirname(here))
+                            cwd=os.path.dirname(here), env={**os.environ, **(env or {})})
     return cmd, proc, time.perf_counter()
 
 
 def finish_ranks(started, timeout: int = 300):
     """Wait for `start_ranks`' processes; returns each rank's launches, the
-    wall seconds and the processes' standard error."""
+    wall seconds, and the processes' standard output and error."""
     cmd, proc, t0 = started
     try:
         out, err = proc.communicate(timeout=timeout)
@@ -2653,14 +2729,19 @@ def finish_ranks(started, timeout: int = 300):
     wall = time.perf_counter() - t0
     check(proc.returncode == 0, f"{' '.join(cmd[:8])}: exit {proc.returncode}\n"
           f"{out[-3000:]}\n{err[-3000:]}")
-    ranks = [json.loads(ln[len("LAUNCHES "):]) for ln in out.splitlines()
-             if ln.startswith("LAUNCHES ")]
-    return sorted(ranks, key=lambda r: r.pop("rank")), wall, err
+    return tagged(out, "LAUNCHES"), wall, out, err
+
+
+def tagged(out: str, tag: str):
+    """The JSON objects of `out`'s lines that start with `tag`, by their
+    "rank" (removed)."""
+    rows = [json.loads(ln[len(tag) + 1:]) for ln in out.splitlines() if ln.startswith(tag + " ")]
+    return sorted(rows, key=lambda r: r.pop("rank", 0))
 
 
 def run_ranks(nproc, mode: str, argv, timeout: int = 300):
     """`start_ranks` then `finish_ranks`."""
-    return finish_ranks(start_ranks(nproc, mode, argv), timeout)
+    return finish_ranks(start_ranks(nproc, [DP_RANK, mode, *argv]), timeout)
 
 
 def logged(log_dir: str):
@@ -2668,13 +2749,117 @@ def logged(log_dir: str):
         return [r for r in map(json.loads, f) if r["tag"] == "train"]
 
 
+def dp_graph(go: str) -> int:
+    """Phase 17 (a'): one NCCL rank (a world of one, under
+    torch.distributed.run), on BatchNorm's own branch and with its
+    across-ranks branch forced (this process's `resnet._ranks` patched to
+    2, so its all-reduces run and are captured).  Per branch, beside the
+    other runs of phase 17: phase 9's `train_graph_run` (f32, TF32 off,
+    batch 2, six gate-crossing steps, the graph torch.equal the eager step,
+    both under the deterministic algorithms: with TF32 off two default-mode
+    eager runs differ on the H100) and the eval graph against `eval_step`.
+    Then, once the file `go` exists (the other runs have ended, so the card
+    is this process's), per branch v2_93 bf16 batch 10 on one batch:
+    synchronized ms/step over 10 steps in turns graph, eager, graph, and
+    per step the device operations, the NCCL kernels among them and the
+    host launches; the graph's capture seconds and pool bytes.  Prints one
+    "DPGRAPH {...}" line."""
+    import torch.distributed as dist
+
+    from stabnet_tpu_torch.data import augment_batch, make_raw_batch, prepare_raw
+    from stabnet_tpu_torch.models import resnet
+    from stabnet_tpu_torch.parallel import initialize_distributed
+    from stabnet_tpu_torch.train import (create_train_state, eval_step, make_eval_step,
+                                         make_train_step, train_step)
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+    torch.cuda.set_device(dev)
+    initialize_distributed(backend="nccl")
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1, "not one NCCL rank")
+    own, out, seconds = resnet._ranks, {}, {"setup": time.perf_counter() - t0}
+    branches = {"own": own, "across": lambda: 2}
+    try:
+        torch.backends.cudnn.allow_tf32 = False
+        for name, ranks in branches.items():
+            resnet._ranks = ranks
+            t0 = time.perf_counter()
+            summary, state, cfg, batches = train_graph_run(dev, eager_spread=False)
+            want = eval_step(state, batches[0], cfg)
+            evaluate = make_eval_step(cfg)
+            got = [evaluate(state, batches[0]) for _ in range(2)]
+            summary["eval_equal"] = all(torch.equal(g[k], want[k]) for g in got for k in want)
+            out[name] = {"equality": summary}
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+            seconds[f"equality {name}"] = time.perf_counter() - t0
+        torch.backends.cudnn.allow_tf32 = True
+        t0 = time.perf_counter()
+        while not os.path.exists(go):
+            check(time.perf_counter() - t0 < 300, "phase 17's other runs did not end")
+            time.sleep(0.1)
+        seconds["wait"] = time.perf_counter() - t0
+        cfg = live_config()
+        batch = augment_batch(torch.Generator().manual_seed(0),
+                              {k: torch.from_numpy(v).to(dev) for k, v in
+                               prepare_raw(make_raw_batch(cfg, cfg.batch_size, seed=0)).items()},
+                              cfg)
+        for name, ranks in branches.items():
+            resnet._ranks = ranks
+            t0 = time.perf_counter()
+            state = create_train_state(cfg, device=dev, seed=0)
+            steps = {"graph": make_train_step(cfg), "eager": lambda s, b: train_step(s, b, cfg)}
+            for _ in range(3):             # the first call captures
+                state, aux = steps["graph"](state, batch)
+            timing = {}
+            for mode in ("graph", "eager", "graph"):
+                ms = []
+                for _ in range(10):
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    state, aux = steps[mode](state, batch)
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t1) * 1e3)
+                check(math.isfinite(float(aux["total"])), f"non-finite loss ({name}, {mode})")
+                timing.setdefault(mode, {"p50_ms": [], "min_ms": [], "max_ms": []})
+                timing[mode]["p50_ms"].append(float(np.median(ms)))
+                timing[mode]["min_ms"].append(min(ms))
+                timing[mode]["max_ms"].append(max(ms))
+            for mode in ("graph", "eager"):
+                device, host = device_events(lambda: steps[mode](state, batch))
+                timing[mode].update(
+                    device_ops=len(device), host_launches=host,
+                    kernels_ms=sum(e.duration_ns() for e in device) / 1e6,
+                    nccl=sum(1 for e in device if "nccl" in e.name().lower()))
+            st = state.graphs.stats()[0]
+            timing["capture_s"], timing["warmup_s"] = st["capture_s"], st["warmup_s"]
+            timing["pool_bytes"] = st["pool_bytes"]
+            out[name]["timing"] = timing
+            del state, steps
+            gc.collect()
+            torch.cuda.empty_cache()
+            seconds[f"timing {name}"] = time.perf_counter() - t0
+    finally:
+        resnet._ranks = own
+        dist.destroy_process_group()
+    out["seconds"] = {k: round(v, 1) for k, v in seconds.items()}
+    print("DPGRAPH " + json.dumps(out), flush=True)
+    return 0
+
+
 def phase_data_parallel(card: str, dev, tmp: str, data: str):
     """`train --data-parallel` through the CLI on phase 8's shards, 2 steps:
     (a) one NCCL rank against the plain run, v2_93 bf16 batch 10, bit for
-    bit; (b) two gloo ranks on the one card, global batch 10, against one
-    process on the merged batch, in f32 (TF32 off), within the CPU test's
-    bound.  The plain run, the NCCL rank and the gloo ranks run at once.
-    Returns the launches of one rank of (b)."""
+    bit, both replaying graphs; (a') one NCCL rank in a process of its own
+    (`dp_graph`): graph against eager on both BatchNorm branches, and their
+    times; (b) two gloo ranks on the one card, global batch 10, eager,
+    against one process on the merged batch, in f32 (TF32 off), within the
+    CPU test's bound; (c) on a machine with two or more cards, two NCCL
+    ranks on two cards replaying graphs, bit for bit the same ranks kept
+    eager, and both within that bound.  The runs start at once; (a')
+    times its steps once the others have ended.  Returns the launches of
+    one rank of (b)."""
     from stabnet_tpu_torch.data import augment
     from stabnet_tpu_torch.data.pipeline import batch_iterator, ensure_flow
     from stabnet_tpu_torch.parallel import form_global_batch
@@ -2691,26 +2876,40 @@ def phase_data_parallel(card: str, dev, tmp: str, data: str):
         return base + ["--model-dir", os.path.join(tmp, name, "models"),
                        "--log-dir", os.path.join(tmp, name, "log"), *extra]
 
-    # The three runs share nothing but the card, so they run at once; each
+    # The runs share nothing but the card, so they run at once; each
     # compares by values (cuDNN's deterministic algorithms, or a bound).
-    runs = (("plain", None, "det", ()),
-            ("nccl1", 1, "det", ("--data-parallel",)),
-            ("gloo2", 2, "f32", ("--data-parallel", "--set", "compute_dtype=float32")))
-    ports = free_ports(len(runs))
-    started = {}
+    # (b) sees one card, so its two ranks share it under gloo on any machine.
+    f32 = ("--data-parallel", "--set", "compute_dtype=float32")
+    runs = [("plain", None, "det", (), {}, steps),
+            ("nccl1", 1, "det", ("--data-parallel",), {}, steps),
+            ("gloo2", 2, "f32", f32, {"CUDA_VISIBLE_DEVICES": "0"}, 0)]
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        runs += [("nccl2", 2, "det+f32", f32, {}, steps),
+                 ("nccl2eager", 2, "det+f32+eager", f32, {}, 0)]
+    ports = free_ports(len(runs) + 1)
+    go = os.path.join(tmp, "dp_graph_go")
+    started = {"graph1": start_ranks(1, [DP_GRAPH, go], ports[-1])}
     try:
-        for (name, nproc, mode, extra), port in zip(runs, ports):
-            started[name] = start_ranks(nproc, mode, args(name, *extra), port)
+        for (name, nproc, mode, extra, env, _), port in zip(runs, ports):
+            started[name] = start_ranks(nproc, [DP_RANK, mode, *args(name, *extra)], port, env)
         out = {}
-        for name, nproc, _, _ in runs:
-            ranks, wall, _ = finish_ranks(started.pop(name))
+        for name, nproc, _, _, _, compiled in runs:
+            ranks, wall, stdout, _ = finish_ranks(started.pop(name))
             check(ranks == [per_rank] * (nproc or 1),
                   f"{name}: launches per rank {ranks}, expected {per_rank}")
+            got = [r["train_steps"] for r in tagged(stdout, "COMPILED")]
+            check(got == [compiled] * (nproc or 1),
+                  f"{name}: train steps through the graphs per rank {got}, expected {compiled}")
             out[name] = (logged(os.path.join(tmp, name, "log")), wall)
+        open(go, "w").close()
+        _, wall_g, stdout, _ = finish_ranks(started.pop("graph1"))
     finally:
         for _, proc, _ in started.values():
             proc.kill()
             proc.communicate()
+    (graph1,) = tagged(stdout, "DPGRAPH")
+    graph1_seconds = graph1.pop("seconds")
     keys = [k for k in out["plain"][0][0] if not k.endswith("_ms")]
     vals = {n: [[r[k] for k in keys] for r in rows] for n, (rows, _) in out.items()}
     check(vals["nccl1"] == vals["plain"], "one NCCL rank differs from the plain run: "
@@ -2735,20 +2934,65 @@ def phase_data_parallel(card: str, dev, tmp: str, data: str):
         step_ms.append((time.perf_counter() - t0) * 1e3)
     torch.backends.cudnn.allow_tf32 = True
     del state
-    got = [r["total"] for r in out["gloo2"][0]]
-    rel = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+
+    def rel(name):
+        return max(abs(r["total"] - w) / abs(w) for r, w in zip(out[name][0], want))
+
     ms = {n: [round(r["step_ms"], 3) for r in rows] for n, (rows, _) in out.items()}
+    parts = []
+    for name, g in graph1.items():
+        eq, t = g["equality"], g["timing"]
+        parts.append(
+            f"{name} branch: graph against eager {eq['gap']} (rule {eq['rule']!r}, "
+            f"launches {eq['launches']}, eval graph equal {eq['eval_equal']}, capture "
+            f"{eq['graph']['capture_s']:.3f} s, pool {eq['graph']['pool_bytes']} B); bf16 "
+            f"batch 10 ms/step p50 graph {[round(v, 3) for v in t['graph']['p50_ms']]} "
+            f"(min {min(t['graph']['min_ms']):.3f}), eager "
+            f"{[round(v, 3) for v in t['eager']['p50_ms']]}; per step graph/eager: device "
+            f"operations {t['graph']['device_ops']}/{t['eager']['device_ops']}, kernels "
+            f"{t['graph']['kernels_ms']:.3f}/{t['eager']['kernels_ms']:.3f} ms, NCCL kernels "
+            f"{t['graph']['nccl']}/{t['eager']['nccl']}, host launches "
+            f"{t['graph']['host_launches']}/{t['eager']['host_launches']}; capture "
+            f"{t['capture_s']:.3f} s after an eager first call of {t['warmup_s']:.3f} s, "
+            f"pool {t['pool_bytes']} B")
+    if cards >= 2:
+        two = (f"(c) two NCCL ranks on two cards (global batch 10, f32, TF32 off, cuDNN "
+               f"deterministic), graphs {[r['total'] for r in out['nccl2'][0]]} against the "
+               f"same ranks eager {[r['total'] for r in out['nccl2eager'][0]]}, max rel to "
+               f"one process {rel('nccl2'):.3g}; step ms rank 0 graph {ms['nccl2']}, eager "
+               f"{ms['nccl2eager']}")
+    else:
+        two = f"(c) not run: {cards} card"
     print(f"[17 data parallel] {card} | train --data-parallel through the CLI on phase 8's "
           f"shards, {steps} steps, launches per rank {per_rank}: (a) v2_93 bf16 batch 10, "
-          f"one NCCL rank under torch.distributed.run equal to the plain run bit for bit "
-          f"(losses {[r['total'] for r in out['plain'][0]]}), step ms plain {ms['plain']}, NCCL rank {ms['nccl1']}, command wall "
-          f"{out['plain'][1]:.1f} and {out['nccl1'][1]:.1f} s, all three runs at once; "
-          f"(b) f32 TF32 off, two gloo "
-          f"ranks on the one card (global batch 10, 5 each): losses {got} against one "
-          f"process on the merged batch {want}, max rel {rel:.3g} (need <= 3.4e-3), step ms "
-          f"rank 0 {ms['gloo2']}, one process {[round(v, 3) for v in step_ms]}, command "
-          f"wall {out['gloo2'][1]:.1f} s")
-    check(rel <= 3.4e-3, "two gloo ranks and one process on the merged batch disagree")
+          f"one NCCL rank under torch.distributed.run replaying graphs, equal to the plain "
+          f"run bit for bit (losses {[r['total'] for r in out['plain'][0]]}), the loop's "
+          f"unsynchronized step stage ms plain {ms['plain']}, NCCL rank {ms['nccl1']}, "
+          f"command wall {out['plain'][1]:.1f} and {out['nccl1'][1]:.1f} s, the runs at "
+          f"once; (a') one NCCL rank in a process of its own ({wall_g:.1f} s; by part "
+          f"{graph1_seconds}): "
+          + "; ".join(parts)
+          + f"; (b) f32 TF32 off, two gloo ranks on the one card, eager (global batch 10, 5 "
+          f"each): losses {[r['total'] for r in out['gloo2'][0]]} against one process on the "
+          f"merged batch {want}, max rel {rel('gloo2'):.3g} (need <= 3.4e-3), step ms rank 0 "
+          f"{ms['gloo2']}, one process {[round(v, 3) for v in step_ms]}, command wall "
+          f"{out['gloo2'][1]:.1f} s; " + two)
+    for name, g in graph1.items():
+        check(not g["equality"]["problems"], f"(a') {name} branch: "
+              + "; ".join(g["equality"]["problems"]))
+        check(g["equality"]["eval_equal"], f"(a') {name} branch: the eval graph differs "
+              "from eval_step")
+        t = g["timing"]
+        check(t["graph"]["nccl"] == t["eager"]["nccl"],
+              f"(a') {name} branch: NCCL kernels per step graph {t['graph']['nccl']}, "
+              f"eager {t['eager']['nccl']}")
+    check(rel("gloo2") <= 3.4e-3, "two gloo ranks and one process on the merged batch "
+          "disagree")
+    if cards >= 2:
+        check(vals["nccl2"] == vals["nccl2eager"], "two NCCL ranks: the graphs differ from "
+              f"the eager steps: {vals['nccl2']} against {vals['nccl2eager']}")
+        check(rel("nccl2") <= 3.4e-3, "two NCCL ranks and one process on the merged batch "
+              "disagree")
     return per_rank
 
 
@@ -2914,7 +3158,7 @@ def phase_debug_vis(card: str, tmp: str, data: str):
     runs = {}
     for name, extra in (("vis", ["--debug-vis"]), ("plain", [])):
         out = os.path.join(tmp, f"debug_{name}")
-        (launches,), wall, err = run_ranks(None, "det", base + [
+        (launches,), wall, _, err = run_ranks(None, "det", base + [
             "--model-dir", os.path.join(out, "models"), "--log-dir", os.path.join(out, "log"),
             *extra])
         runs[name] = (launches, wall, err, out)
@@ -3199,6 +3443,16 @@ def timed(number: int, fn, *args):
 SECONDS = {}
 
 
+def dp_only() -> int:
+    """Phase 17 alone, after phase 1 (the kernels' build) and phase 8's
+    shards: the check of a machine with several cards, where (c) runs."""
+    card = timed(1, phase_device)
+    with tempfile.TemporaryDirectory() as tmp:
+        timed(17, phase_data_parallel, card, torch.device("cuda"), tmp, make_shards(tmp))
+    print(f"[17 only] {torch.cuda.device_count()} card(s): phase 17 passed")
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3207,6 +3461,10 @@ def main() -> int:
         return dp_rank(sys.argv[2], sys.argv[3:])
     if len(sys.argv) > 1 and sys.argv[1] == GATE:
         return gate_process(sys.argv[2:])
+    if len(sys.argv) > 1 and sys.argv[1] == DP_GRAPH:
+        return dp_graph(sys.argv[2])
+    if len(sys.argv) > 1 and sys.argv[1] == DP_ONLY:
+        return dp_only()
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)

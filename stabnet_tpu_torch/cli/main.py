@@ -62,8 +62,10 @@ checkpoint as `<out>/0/state.pt`, a fresh training state at step 0 that
 one): each rank trains on its share of the global batch `batch_size`, with
 BatchNorm's statistics and the gradients reduced over the ranks (NCCL
 where each rank has a card of its own, gloo where ranks share a card and on
-the CPU).  `stabilize --batch S --batch-sharded` splits the S clips over every
-local card, one model replica each.  `export` writes the serving step, its
+the CPU); an NCCL rank replays its step as a captured CUDA graph with the
+collectives inside, a gloo rank steps eagerly.  `stabilize --batch S
+--batch-sharded` splits the S clips over every local card, one model
+replica each.  `export` writes the serving step, its
 weights baked in, as a `torch.export` artifact (with `--segment K` also K
 steps unrolled), traced on `--device` and made for each device type of
 `--platforms`; `stabilize --from-export` serves the program for its

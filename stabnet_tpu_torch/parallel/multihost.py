@@ -66,6 +66,12 @@ def in_process_group() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
+def group_backend() -> Optional[str]:
+    """The backend of this process's group ("nccl", "gloo"); None without
+    one."""
+    return dist.get_backend() if in_process_group() else None
+
+
 def process_index_count() -> Tuple[int, int]:
     """(rank, world size): (0, 1) without a process group."""
     if in_process_group():
@@ -93,7 +99,10 @@ def form_global_batch(local_batches: Sequence[Dict[str, np.ndarray]]
 def average_gradients(params: List[torch.nn.Parameter]) -> None:
     """Replace each gradient by its mean over the ranks: one all-reduce of
     the flattened gradients, divided by the world size (exact for one
-    rank).  A no-op without a process group."""
+    rank).  A no-op without a process group.  Safe to capture in a CUDA
+    graph under NCCL: the flat buffer and the zeros of a missing gradient
+    are allocated where the caller allocates (a capture's pool), and no
+    value is read to the host (the world size is the group's host int)."""
     if not in_process_group():
         return
     grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
@@ -107,7 +116,7 @@ def average_gradients(params: List[torch.nn.Parameter]) -> None:
 def mean_over_ranks(values: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Scalars averaged over the ranks (the global batch's loss terms,
     since each is a batch mean over equal local batches); unchanged without
-    a process group."""
+    a process group.  Safe to capture, as `average_gradients`."""
     if not in_process_group():
         return values
     keys = sorted(values)

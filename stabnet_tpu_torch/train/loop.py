@@ -4,11 +4,11 @@ Reference: train_bundle_nobm.py:199-357 — per-100-iteration loss display
 with the data-read vs. train-time split, per-500-iteration held-out eval
 over 10 batches, per-5000-iteration checkpoints; the JAX package's
 stabnet_tpu/train/loop.py.  The steps are the compiled ones
-(`make_train_step`, `make_eval_step`: captured CUDA graphs on the card, the
-eager steps on the CPU and in a process group), built once per run.  In a
-process group (data parallelism, parallel/multihost.py) every rank steps,
-and rank 0 alone logs, writes the metrics and saves checkpoints while the
-others wait at a barrier.  With
+(`make_train_step`, `make_eval_step`: captured CUDA graphs on the card,
+alone or as an NCCL rank; the eager steps on the CPU and under gloo), built
+once per run.  In a process group (data parallelism,
+parallel/multihost.py) every rank steps, and rank 0 alone logs, writes the
+metrics and saves checkpoints while the others wait at a barrier.  With
 `debug_vis`, rank 0 also dumps the reference's debug mosaics
 (train_bundle_nobm.py:41-94) from a forward in eval mode.
 """

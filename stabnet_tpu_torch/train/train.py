@@ -24,9 +24,11 @@ PyTorch port of stabnet_tpu/train/train.py.  What it reproduces:
     group, BatchNorm takes the global batch's statistics, the gradients are
     averaged over the ranks before Adam, and the loss terms returned are
     the global batch's (parallel/multihost.py).  Without one, nothing of
-    that runs.  A process group's steps run eagerly: gloo's all-reduce on
-    CUDA tensors cannot be captured, and NCCL's capture is unverified on
-    one card.
+    that runs.  An NCCL rank's compiled steps are graphs too, each with its
+    collectives inside (BatchNorm's sums, the gradient all-reduce, the mean
+    of the loss terms), as the JAX package's jit over the mesh holds its
+    all-reduces; a gloo rank's steps run eagerly, since gloo's all-reduce
+    of CUDA tensors goes through the host and cannot be captured.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ from stabnet_tpu_torch import losses
 from stabnet_tpu_torch.config import StabNetConfig
 from stabnet_tpu_torch.models.stabnet import StabNetOutput, forward_train
 from stabnet_tpu_torch.ops import cuda_warp
-from stabnet_tpu_torch.parallel.multihost import (average_gradients, in_process_group,
+from stabnet_tpu_torch.parallel.multihost import (average_gradients, group_backend,
                                                   mean_over_ranks)
 from stabnet_tpu_torch.train.state import TrainState, learning_rate
 
@@ -200,19 +202,23 @@ def eval_step(state: TrainState, batch: Batch, cfg: StabNetConfig
 
 
 def _compiled(state: TrainState) -> bool:
-    """Whether `state`'s compiled steps replay graphs: on CUDA, outside a
-    process group (whose steps stay eager by design)."""
-    return state.device.type == "cuda" and not in_process_group()
+    """Whether `state`'s compiled steps replay graphs: on CUDA, alone or as
+    a rank of an NCCL group (a capture holds NCCL's collectives); eager on
+    the CPU and under gloo, whose all-reduce of CUDA tensors goes through
+    the host."""
+    return state.device.type == "cuda" and group_backend() in (None, "nccl")
 
 
 def _replay(state: TrainState, key: tuple, body, batch: Batch,
             cfg: StabNetConfig) -> Dict[str, torch.Tensor]:
-    """`body(state, batch, cfg)`'s loss terms through the state's graph of
-    `key` and the batch's signature; copied out of the graph's buffer."""
+    """`body(state, batch, cfg)`'s loss terms averaged over the ranks (the
+    global batch's, as the eager steps return them) through the state's
+    graph of `key` and the batch's signature; copied out of the graph's
+    buffer."""
     names = tuple(sorted(batch))
 
     def fn(*tensors):
-        aux = body(state, dict(zip(names, tensors)), cfg)
+        aux = mean_over_ranks(body(state, dict(zip(names, tensors)), cfg))
         assert set(aux) == set(AUX_KEYS), sorted(aux)
         return (torch.stack([aux[k].float() for k in AUX_KEYS]),)
 
@@ -228,12 +234,14 @@ def make_train_step(cfg: StabNetConfig) -> Callable[[TrainState, Batch],
     """The compiled train step (the JAX package's `make_train_step`):
     `step(state, batch) -> (state, loss terms)`, `train_step`'s result.
 
-    On a CUDA state in one process it replays the state's captured CUDA
-    graph of the whole step for the batch's shapes and dtypes (captured at
-    the first such call, which runs eagerly and is that call's step), then
-    mirrors the host counters; the loss terms are copied out of the graph,
-    whose next replay overwrites them.  A failed capture or replay raises.
-    On the CPU, and in a process group, it is `train_step`."""
+    On a CUDA state, alone or as an NCCL rank, it replays the state's
+    captured CUDA graph of the whole step for the batch's shapes and dtypes
+    (captured at the first such call, which runs eagerly and is that call's
+    step), then mirrors the host counters; the loss terms are copied out of
+    the graph, whose next replay overwrites them.  An NCCL rank's graph
+    holds the step's collectives, so every rank must reach each batch
+    signature at the same step.  A failed capture or replay raises.  On the
+    CPU, and under gloo, it is `train_step`."""
     def step(state: TrainState, batch: Batch) -> Tuple[TrainState, Batch]:
         if not _compiled(state):
             return train_step(state, batch, cfg)
@@ -249,7 +257,8 @@ def make_train_step(cfg: StabNetConfig) -> Callable[[TrainState, Batch],
 def make_eval_step(cfg: StabNetConfig) -> Callable[[TrainState, Batch], Batch]:
     """The compiled eval step (the JAX package's `make_eval_step`):
     `step(state, batch) -> loss terms`, `eval_step`'s result; a graph per
-    batch signature on a CUDA state in one process, as `make_train_step`."""
+    batch signature on a CUDA state, alone or as an NCCL rank, as
+    `make_train_step`."""
     def step(state: TrainState, batch: Batch) -> Batch:
         if not _compiled(state):
             return eval_step(state, batch, cfg)

@@ -32,6 +32,13 @@ lock), so a thread's capture never overlaps another's: the training step's
 on the main thread and the augmentation's or the flow's on the input
 pipeline's thread.
 
+A collective of an NCCL process group is captured as any other work: the
+eager first call creates the communicator (NCCL makes it at its first
+collective, which must not happen inside a capture), and the capture records
+NCCL's side stream and its events into the graph, from autograd's device
+thread too (BatchNorm's all-reduce in the backward).  Every rank must reach
+each key at the same point, or one rank's capture meets another's eager call.
+
 A graph's outputs are its own buffers: valid until the next call of that
 key, so the caller copies out what it keeps first.  A capture or a replay
 that fails raises; nothing carries on eagerly on CUDA tensors.  On the CPU

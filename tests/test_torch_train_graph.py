@@ -27,8 +27,8 @@ On the CPU:
     `augment_batch`'s batch bit for bit, and the pipeline's batches at a
     fixed seed are those of `augment_batch` over the same raw batches;
   * the launch record keyed by the capturing stream, as a host function;
-  * a CPU state and a CPU pipeline never capture, and a process group's
-    steps stay eager.
+  * a CPU state and a CPU pipeline never capture (which process groups
+    capture: tests/test_torch_dp_graph.py).
 
 The `cuda` tests hold the graphs to the eager functions on a card; they
 skip without one.  On a machine with a card and no JAX:
@@ -540,14 +540,6 @@ def test_cpu_state_and_pipeline_never_capture(monkeypatch):
     raw = {k: torch.from_numpy(v) for k, v in prepare_raw(make_raw_batch(cfg, 2)).items()}
     augment_compiled(cache, torch.Generator(), raw, cfg, (0, 1), "cpu")
     assert len(state.graphs) == 0 and len(cache) == 0
-
-
-def test_graphs_only_outside_a_process_group(monkeypatch):
-    card = types.SimpleNamespace(device=torch.device("cuda", 0))
-    host = types.SimpleNamespace(device=torch.device("cpu"))
-    assert train_mod._compiled(card) and not train_mod._compiled(host)
-    monkeypatch.setattr(train_mod, "in_process_group", lambda: True)
-    assert not train_mod._compiled(card)
 
 
 def test_counters_move_in_pairs():
