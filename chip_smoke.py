@@ -1579,7 +1579,7 @@ def phase_train_times(card: str, gen: torch.Generator, dev, data: str):
     warm_gib = torch.cuda.max_memory_allocated() / 2 ** 30 - base_gib
     windows = []
     for mode in ("graph", "eager", "graph"):
-        timers, step_ms = StageTimer(), []
+        timers, step_ms = StageTimer("train."), []
         torch.cuda.reset_peak_memory_stats()
         t_window = time.perf_counter()
         for _ in range(10):

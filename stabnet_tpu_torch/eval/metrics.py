@@ -38,6 +38,7 @@ import torch
 from stabnet_tpu_torch.ops.flow import tvl1_flow_eager
 from stabnet_tpu_torch.utils import device_constant, resolve_device
 from stabnet_tpu_torch.utils.graphs import GraphCache
+from stabnet_tpu_torch.utils.profiling import span
 
 
 # The correspondence grid's spacing and border margin, pixels.
@@ -344,17 +345,21 @@ def _pairs_h_chunk(a: torch.Tensor, b: torch.Tensor,
 
 def _pairs_h(a: torch.Tensor, b: torch.Tensor, rect=None,
              prealign: bool = False) -> torch.Tensor:
-    if rect is not None:
-        rect = torch.tensor([float(v) for v in rect], dtype=torch.float32)
-    out = []
-    for s in range(0, a.shape[0], _EVAL_CHUNK):
-        ca, cb = a[s:s + _EVAL_CHUNK], b[s:s + _EVAL_CHUNK]
-        k = ca.shape[0]
-        if k < _EVAL_CHUNK:
-            ca = torch.cat([ca, ca[-1:].expand(_EVAL_CHUNK - k, -1, -1)])
-            cb = torch.cat([cb, cb[-1:].expand(_EVAL_CHUNK - k, -1, -1)])
-        out.append(_pairs_h_chunk(ca, cb, rect, prealign=prealign)[:k])
-    return torch.cat(out)
+    with span("score.pairs") as kept:
+        if rect is not None:
+            rect = torch.tensor([float(v) for v in rect], dtype=torch.float32)
+        out = []
+        for s in range(0, a.shape[0], _EVAL_CHUNK):
+            ca, cb = a[s:s + _EVAL_CHUNK], b[s:s + _EVAL_CHUNK]
+            k = ca.shape[0]
+            if k < _EVAL_CHUNK:
+                ca = torch.cat([ca, ca[-1:].expand(_EVAL_CHUNK - k, -1, -1)])
+                cb = torch.cat([cb, cb[-1:].expand(_EVAL_CHUNK - k, -1, -1)])
+            out.append(_pairs_h_chunk(ca, cb, rect, prealign=prealign)[:k])
+        if kept is not None:
+            # The pairs scored, and the chunks' slots they were padded to.
+            kept.counters.update(pairs=a.shape[0], slots=len(out) * _EVAL_CHUNK)
+        return torch.cat(out)
 
 
 def _interframe_h(frames: torch.Tensor, rect=None) -> torch.Tensor:
@@ -392,12 +397,15 @@ def evaluate_clip(output_gray, input_gray=None, rect=None,
     """
     dev = resolve_device(device)
     out_t = torch.as_tensor(output_gray).to(dev, torch.float32)
-    scores = {"stability": float(stability_score(_interframe_h(out_t, rect)))}
+    Hs = _interframe_h(out_t, rect)
+    with span("score.reduce"):
+        scores = {"stability": float(stability_score(Hs))}
     if input_gray is not None:
         in_t = torch.as_tensor(input_gray).to(dev, torch.float32)
         Hs_cross = _crossvideo_h(in_t, out_t, rect)
-        scores["cropping"] = float(cropping_score(Hs_cross))
-        scores["distortion"] = float(distortion_score(Hs_cross))
+        with span("score.reduce"):
+            scores["cropping"] = float(cropping_score(Hs_cross))
+            scores["distortion"] = float(distortion_score(Hs_cross))
     return scores
 
 
@@ -480,15 +488,17 @@ def score_stabilized_clip(output_frames, input_gray, model_hw: Tuple[int, int],
     """
     dev = resolve_device(device)
     h, w = model_hw
-    out_gray, in_gray, ds = _eval_grays(output_frames, input_gray, model_hw, dev)
-    n = min(len(out_gray), len(in_gray))
-    rect = None
-    if crop_rect is not None:
-        top, left, bot, right = crop_rect
-        rect = (top // ds, left // ds, bot // ds, right // ds)
-    scores = evaluate_clip(out_gray[:n], in_gray[:n], rect=rect, device=dev)
-    scores["stability_input"] = evaluate_clip(in_gray[:n], device=dev)["stability"]
-    if crop_rect is not None:
-        top, left, bot, right = crop_rect
-        scores["crop_area"] = float((bot - top + 1) * (right - left + 1) / (h * w))
+    with span("score.clip"):
+        with span("score.grays"):
+            out_gray, in_gray, ds = _eval_grays(output_frames, input_gray, model_hw, dev)
+        n = min(len(out_gray), len(in_gray))
+        rect = None
+        if crop_rect is not None:
+            top, left, bot, right = crop_rect
+            rect = (top // ds, left // ds, bot // ds, right // ds)
+        scores = evaluate_clip(out_gray[:n], in_gray[:n], rect=rect, device=dev)
+        scores["stability_input"] = evaluate_clip(in_gray[:n], device=dev)["stability"]
+        if crop_rect is not None:
+            top, left, bot, right = crop_rect
+            scores["crop_area"] = float((bot - top + 1) * (right - left + 1) / (h * w))
     return scores

@@ -34,7 +34,7 @@ from stabnet_tpu_torch.ops.crop import max_clear_rect
 from stabnet_tpu_torch.stream import video_io
 from stabnet_tpu_torch.stream.engine import StreamEngine, gray_from_color
 from stabnet_tpu_torch.utils import get_logger
-from stabnet_tpu_torch.utils.profiling import StageTimer
+from stabnet_tpu_torch.utils.profiling import StageTimer, span
 
 logger = get_logger()
 
@@ -100,6 +100,12 @@ def _bounce(delta: int, bound: int, speed: int) -> Tuple[int, int]:
     if tmp >= bound or tmp < 0:
         speed *= -1
     return delta + speed, speed
+
+
+def _read_back(t: torch.Tensor) -> np.ndarray:
+    """A batch call's device result in host memory."""
+    with span("driver.readback"):
+        return t.cpu().numpy()
 
 
 class _Readback:
@@ -195,7 +201,7 @@ class StreamDriver:
         pinned = pipelined and self.engine.device.type == "cuda"
         bufs: List[Optional[torch.Tensor]] = [None, None]
 
-        timers = StageTimer()
+        timers = StageTimer("driver.clip.")
         pending = None  # pipelined: (the previous frame's _Readback, its dispatch s)
         # At t=1 the "last output" is the warm-up frame replicated into the
         # history (deploy_bundle.py:216-224).
@@ -385,31 +391,53 @@ class StreamDriver:
                     f"pass output_size to pick one (single-clip mode keeps "
                     f"each clip's native size)")
         out_hw = tuple(opt.output_size or clips[0].shape[1:3])
+        with span("driver.batch") as root:
+            results = self._batch_call(clips, lengths, T, out_hw, chunk, sharded)
+            if root is not None:
+                root.counters["frames"] = sum(len(c) - 1 for c in clips)
+        return results
 
-        timers = StageTimer()
-        with timers.stage("pre"):
+    def _batch_call(self, clips: List[np.ndarray], lengths: List[int], T: int,
+                    out_hw: Tuple[int, int], chunk: Optional[int],
+                    sharded: bool) -> List[ClipResult]:
+        """`stabilize_batch` on its checked arguments: the S = len(lengths)
+        streams padded to T frames."""
+        cfg, opt = self.cfg, self.opt
+        S = len(lengths)
+        timers = StageTimer("driver.")
+        with timers.stage("pre") as pre:
             grays = np.zeros((S, T, cfg.height, cfg.width), np.float32)
             colors = np.zeros((S, T, *out_hw, 3), np.uint8)
             # Frames 1..T-1 are scanned; valid[s, t-1] <=> t < T_s (a prefix).
             valid = np.zeros((S, T - 1), bool)
+            # Under a profiler, the seconds of the grays and of the color
+            # copies, apart.
+            timed, gray_s, color_s = pre is not None, 0.0, 0.0
             for s, clip in enumerate(clips):
                 for t in range(lengths[s]):
+                    t0 = time.perf_counter() if timed else 0.0
                     grays[s, t] = video_io.to_gray_train(
                         clip[t], cfg.height, cfg.width,
                         cfg.crop_rate if t == 0 else 1.0)
+                    t1 = time.perf_counter() if timed else 0.0
                     colors[s, t] = self._resize_color(clip[t], out_hw)
+                    if timed:
+                        gray_s += t1 - t0
+                        color_s += time.perf_counter() - t1
                 # Padded steps repeat the last real frame; their state writes
                 # are masked out.
                 grays[s, lengths[s]:] = grays[s, lengths[s] - 1]
                 colors[s, lengths[s]:] = colors[s, lengths[s] - 1]
                 valid[s, : lengths[s] - 1] = True
+            if timed:
+                pre.counters.update(gray_s=gray_s, color_s=color_s)
 
         with timers.stage("scan"):
             if chunk is None:
                 scan = (self.engine.stabilize_clips_sharded if sharded
                         else self.engine.stabilize_clip)
                 warped, state = scan(grays, colors, valid=valid)
-                warped_np = warped.cpu().numpy()          # (S, T-1, Ho, Wo, 3)
+                warped_np = _read_back(warped)            # (S, T-1, Ho, Wo, 3)
             else:
                 state = self.engine.init(grays[:, 0])
                 segs = []
@@ -418,28 +446,29 @@ class StreamDriver:
                     w, state = self.engine.continue_clip(
                         state, grays[:, lo:hi], colors[:, lo:hi],
                         valid=valid[:, lo - 1: hi - 1])
-                    segs.append(w.cpu().numpy())
+                    segs.append(_read_back(w))
                 warped_np = np.concatenate(segs, axis=1)
-            all_black = state.all_black.cpu().numpy()
+            all_black = _read_back(state.all_black)
         summary = timers.summary()
         elapsed = summary["scan"]["total_s"]
         total_frames = sum(len(c) - 1 for c in clips)
         fps = total_frames / elapsed if elapsed > 0 else float("inf")
 
         results = []
-        for s, clip in enumerate(clips):
-            frames_arr = np.concatenate([self._resize_color(clip[0], out_hw)[None],
-                                         warped_np[s, : lengths[s] - 1]])
-            rect = max_clear_rect(all_black[s])
-            ys, xs = self._crop_slices(rect, out_hw)
-            # input_gray reuses grays[s, 1:] (crop_rate 1.0); only frame 0
-            # differs (it used cfg.crop_rate).
-            results.append(ClipResult(
-                frames=frames_arr, cropped=frames_arr[:, ys, xs, :], crop_rect=rect,
-                all_black=all_black[s], fps_net=fps, stage_summary=summary,
-                input_gray=(np.concatenate([
-                    video_io.to_gray_train(clip[0], cfg.height, cfg.width, 1.0)[None],
-                    grays[s, 1: lengths[s]]]) if opt.collect_input_gray else None)))
+        with span("driver.assemble"):
+            for s, clip in enumerate(clips):
+                frames_arr = np.concatenate([self._resize_color(clip[0], out_hw)[None],
+                                             warped_np[s, : lengths[s] - 1]])
+                rect = max_clear_rect(all_black[s])
+                ys, xs = self._crop_slices(rect, out_hw)
+                # input_gray reuses grays[s, 1:] (crop_rate 1.0); only frame 0
+                # differs (it used cfg.crop_rate).
+                results.append(ClipResult(
+                    frames=frames_arr, cropped=frames_arr[:, ys, xs, :], crop_rect=rect,
+                    all_black=all_black[s], fps_net=fps, stage_summary=summary,
+                    input_gray=(np.concatenate([
+                        video_io.to_gray_train(clip[0], cfg.height, cfg.width, 1.0)[None],
+                        grays[s, 1: lengths[s]]]) if opt.collect_input_gray else None)))
         return results
 
     # -- a stream in constant host memory ------------------------------------

@@ -41,6 +41,7 @@ from stabnet_tpu_torch.ops.crop import max_clear_rect
 from stabnet_tpu_torch.ops.resize import resize_bilinear_bhw as resize_bilinear
 from stabnet_tpu_torch.utils import device_constant, resolve_device
 from stabnet_tpu_torch.utils.graphs import GraphCache
+from stabnet_tpu_torch.utils.profiling import span
 
 
 class StreamState(NamedTuple):
@@ -513,20 +514,25 @@ class StreamEngine:
             yield
         return warped, gs.store(state, T)
 
+    def _upload(self, clip_gray, clip_color) -> Tuple[torch.Tensor, torch.Tensor]:
+        """A clip's (or segment's) grays and colors on the engine's device."""
+        with span("engine.upload"):
+            return self._put(clip_gray), self._put(clip_color)
+
     @torch.inference_mode()
-    def _scan(self, state: StreamState, clip_gray, clip_color,
+    def _scan(self, state: StreamState, clip_gray: torch.Tensor, clip_color: torch.Tensor,
               valid: Optional[np.ndarray]) -> Tuple[torch.Tensor, StreamState]:
-        clip_gray, clip_color = self._put(clip_gray), self._put(clip_color)
-        if self.device.type != "cuda":
-            return scan_frames(self.model, state, clip_gray, clip_color, self.cfg,
-                               refine=self.refine, out_hw=self.out_hw, valid=valid)
-        return _run(self._graph_scan(self.model, state, clip_gray, clip_color, valid))
+        with span("engine.scan"):
+            if self.device.type != "cuda":
+                return scan_frames(self.model, state, clip_gray, clip_color, self.cfg,
+                                   refine=self.refine, out_hw=self.out_hw, valid=valid)
+            return _run(self._graph_scan(self.model, state, clip_gray, clip_color, valid))
 
     def stabilize_clip(self, clip_gray: np.ndarray, clip_color: np.ndarray,
                        valid: Optional[np.ndarray] = None
                        ) -> Tuple[torch.Tensor, StreamState]:
         """Whole-clip stabilization (see stabilize_clip_device)."""
-        clip_gray, clip_color = self._put(clip_gray), self._put(clip_color)
+        clip_gray, clip_color = self._upload(clip_gray, clip_color)
         state0 = init_state(clip_gray[:, 0], self.cfg)
         return self._scan(state0, clip_gray[:, 1:], clip_color[:, 1:], valid)
 
@@ -536,7 +542,7 @@ class StreamEngine:
                       ) -> Tuple[torch.Tensor, StreamState]:
         """Process a segment of frames from an existing state (see
         scan_frames); `state`'s ring is updated in place."""
-        return self._scan(state, clip_gray, clip_color, valid)
+        return self._scan(state, *self._upload(clip_gray, clip_color), valid)
 
     @torch.inference_mode()
     def stabilize_clips_sharded(self, clip_gray: np.ndarray, clip_color: np.ndarray,

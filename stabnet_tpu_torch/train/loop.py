@@ -128,7 +128,7 @@ def train(cfg: StabNetConfig, train_batches: Iterator,
                     "random)", imagenet_ckpt)
     main = process_index_count()[0] == 0
     metrics = MetricsWriter(cfg.log_dir, tensorboard=tensorboard) if main else None
-    timers = StageTimer()
+    timers = StageTimer("train.")
     train_step, eval_step = make_train_step(cfg), make_eval_step(cfg)
     total = num_steps if num_steps is not None else cfg.training_iter
     aux = None
