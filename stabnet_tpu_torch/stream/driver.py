@@ -34,6 +34,7 @@ from stabnet_tpu_torch.ops.crop import max_clear_rect
 from stabnet_tpu_torch.stream import video_io
 from stabnet_tpu_torch.stream.engine import StreamEngine, gray_from_color
 from stabnet_tpu_torch.utils import get_logger
+from stabnet_tpu_torch.utils.graphs import PinnedStage
 from stabnet_tpu_torch.utils.profiling import StageTimer, span
 
 logger = get_logger()
@@ -102,10 +103,23 @@ def _bounce(delta: int, bound: int, speed: int) -> Tuple[int, int]:
     return delta + speed, speed
 
 
-def _read_back(t: torch.Tensor) -> np.ndarray:
-    """A batch call's device result in host memory."""
-    with span("driver.readback"):
-        return t.cpu().numpy()
+def _read_back(t: torch.Tensor, host: Optional[torch.Tensor] = None) -> np.ndarray:
+    """A batch call's device result in host memory: copied into `host` (one
+    copy per leading index, each contiguous, so that a slice of a page-locked
+    buffer takes the card's copy engine at its speed), or without `host` a
+    CPU tensor's own memory.  The span counts the bytes by the host memory
+    they land in: `pinned_bytes`, `pageable_bytes`."""
+    with span("driver.readback") as sp:
+        if host is None:
+            host = t.cpu()
+        else:
+            for dst, src in zip(host, t):
+                dst.copy_(src)
+        if sp is not None:
+            pinned = t.is_cuda and host.is_pinned()
+            sp.counters.update(pinned_bytes=t.nbytes if pinned else 0,
+                               pageable_bytes=0 if pinned else t.nbytes)
+        return host.numpy()
 
 
 class _Readback:
@@ -144,6 +158,8 @@ class StreamDriver:
         self.engine = engine
         self.cfg = engine.cfg
         self.opt = options or DeployOptions()
+        # The batch call's read-backs on the card: its frames, its black counts.
+        self._stages = (PinnedStage(), PinnedStage())
 
     # -- one clip, frame by frame --------------------------------------------
     def stabilize_clip(self, unstable: np.ndarray,
@@ -348,10 +364,13 @@ class StreamDriver:
             all-invalid streams (their compute is lock-step overhead, their
             results are dropped), so every group has the same shapes.
 
-        The history ablations, --start-with-stable and --deploy-vis need the
-        frame-at-a-time loop and are rejected.  Each result's stage summary
-        holds the host's gray and resize preparation ("pre") apart from the
-        device scan and readback ("scan"), which `fps_net` counts.
+        On the card the grays and colors go up, and the frames and black
+        counts come back, through page-locked buffers that the engine and
+        the driver keep from call to call; nothing a call returns lies in
+        one.  The history ablations, --start-with-stable and --deploy-vis
+        need the frame-at-a-time loop and are rejected.  Each result's stage
+        summary holds the host's gray and resize preparation ("pre") apart
+        from the device scan and readback ("scan"), which `fps_net` counts.
         """
         cfg, opt = self.cfg, self.opt
         if opt.ablations:
@@ -437,18 +456,21 @@ class StreamDriver:
                 scan = (self.engine.stabilize_clips_sharded if sharded
                         else self.engine.stabilize_clip)
                 warped, state = scan(grays, colors, valid=valid)
-                warped_np = _read_back(warped)            # (S, T-1, Ho, Wo, 3)
+                warped_np = _read_back(warped, self._landing(0, warped))  # (S, T-1, Ho, Wo, 3)
             else:
                 state = self.engine.init(grays[:, 0])
-                segs = []
+                host = None
                 for k in range((T - 1) // chunk):
                     lo, hi = 1 + k * chunk, 1 + (k + 1) * chunk
                     w, state = self.engine.continue_clip(
                         state, grays[:, lo:hi], colors[:, lo:hi],
                         valid=valid[:, lo - 1: hi - 1])
-                    segs.append(_read_back(w))
-                warped_np = np.concatenate(segs, axis=1)
-            all_black = _read_back(state.all_black)
+                    if host is None:
+                        host = self._landing(0, w, (S, T - 1) + tuple(w.shape[2:]))
+                    _read_back(w, host[:, lo - 1: hi - 1])
+                warped_np = host.numpy()
+            # A copy: no array the call returns lies in a reused stage.
+            all_black = _read_back(state.all_black, self._landing(1, state.all_black)).copy()
         summary = timers.summary()
         elapsed = summary["scan"]["total_s"]
         total_frames = sum(len(c) - 1 for c in clips)
@@ -470,6 +492,18 @@ class StreamDriver:
                         video_io.to_gray_train(clip[0], cfg.height, cfg.width, 1.0)[None],
                         grays[s, 1: lengths[s]]]) if opt.collect_input_gray else None)))
         return results
+
+    def _landing(self, i: int, t: torch.Tensor,
+                 shape: Optional[Tuple[int, ...]] = None) -> Optional[torch.Tensor]:
+        """Where a batch call's result `t`, or the result of `shape` that `t`
+        is a segment of, lands in host memory: on the card a view of the
+        driver's page-locked stage `i` (0 the frames, 1 the black counts),
+        reused from call to call, so the call copies what it returns; on the
+        CPU, for the whole result None (it is read where it lies), else a
+        new tensor."""
+        if t.is_cuda:
+            return self._stages[i].view(t.shape if shape is None else shape, t.dtype)
+        return None if shape is None else torch.empty(shape, dtype=t.dtype)
 
     # -- a stream in constant host memory ------------------------------------
     def _check_streaming(self, chunk: int) -> int:

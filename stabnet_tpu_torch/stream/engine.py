@@ -40,7 +40,7 @@ from stabnet_tpu_torch.ops import cuda_warp
 from stabnet_tpu_torch.ops.crop import max_clear_rect
 from stabnet_tpu_torch.ops.resize import resize_bilinear_bhw as resize_bilinear
 from stabnet_tpu_torch.utils import device_constant, resolve_device
-from stabnet_tpu_torch.utils.graphs import GraphCache
+from stabnet_tpu_torch.utils.graphs import GraphCache, PinnedStage
 from stabnet_tpu_torch.utils.profiling import span
 
 
@@ -413,6 +413,8 @@ class StreamEngine:
     `graphs` holds them (its `stats()`: capture seconds and pool bytes).
     The values are `stream_step`'s bit for bit.  A step's outputs are
     copied out of the graph's buffers, so each `StepOutput` stays valid.
+    A clip's or segment's host grays and colors reach the card through two
+    page-locked buffers the engine keeps (`_upload`).
     On the CPU the eager step runs and no graph is captured.
     """
 
@@ -426,6 +428,7 @@ class StreamEngine:
         self._replicas = {}   # device list -> one model replica per device
         self.graphs = GraphCache(shared_pool=True)
         self._graph_states = {}   # (model id, S, device) -> _GraphState
+        self._stages = (PinnedStage(), PinnedStage())   # the uploads' grays, colors
 
     def _put(self, a) -> torch.Tensor:
         """`a` (an array, or a tensor on any device) on the engine's device."""
@@ -515,9 +518,31 @@ class StreamEngine:
         return warped, gs.store(state, T)
 
     def _upload(self, clip_gray, clip_color) -> Tuple[torch.Tensor, torch.Tensor]:
-        """A clip's (or segment's) grays and colors on the engine's device."""
-        with span("engine.upload"):
-            return self._put(clip_gray), self._put(clip_color)
+        """A clip's (or segment's) grays and colors on the engine's device.
+
+        On CUDA a host input goes through the engine's page-locked stage for
+        its role and on to the card without waiting for it (the scan's
+        replays follow on the same stream); an input already on a card, or
+        any input of a CPU engine, is put as `_put` puts it.  The span counts
+        the host inputs' bytes by the memory the copy read them from:
+        `pinned_bytes` (a stage), `pageable_bytes`."""
+        with span("engine.upload") as sp:
+            moved = {"pinned_bytes": 0, "pageable_bytes": 0}
+            out = []
+            for a, stage in zip((clip_gray, clip_color), self._stages):
+                x = _tensor(a)
+                if x.device.type == "cpu" and self.device.type == "cuda":
+                    dst = torch.empty(tuple(x.shape), dtype=x.dtype, device=self.device)
+                    stage.upload(x, dst)
+                    moved["pinned_bytes"] += x.nbytes
+                else:
+                    if x.device.type == "cpu":
+                        moved["pageable_bytes"] += x.nbytes
+                    dst = x.to(self.device)
+                out.append(dst)
+            if sp is not None:
+                sp.counters.update(moved)
+            return out[0], out[1]
 
     @torch.inference_mode()
     def _scan(self, state: StreamState, clip_gray: torch.Tensor, clip_color: torch.Tensor,

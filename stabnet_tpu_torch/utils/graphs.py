@@ -47,6 +47,7 @@ that fails raises; nothing carries on eagerly on CUDA tensors.  On the CPU
 
 from __future__ import annotations
 
+import math
 import threading
 import time
 from typing import Callable, Dict, Hashable, List, Optional, Sequence, Tuple
@@ -65,19 +66,39 @@ def signature(key: Hashable, inputs: Sequence[torch.Tensor],
             tuple((tuple(int(d) for d in x.shape), x.dtype) for x in inputs))
 
 
-class _Stage:
-    """A pinned host buffer for one input, reused once the copy that last
-    read it has run."""
+class PinnedStage:
+    """A page-locked host buffer for one role of copy (a graph's input, a
+    batch call's grays, colors or results), reused from copy to copy.
 
-    def __init__(self, like: torch.Tensor):
-        self.buf = torch.empty(tuple(like.shape), dtype=like.dtype, pin_memory=True)
+    It grows to the largest request it has seen and serves each request
+    from a contiguous prefix, so in steady state nothing new is pinned.  A
+    copy to the card from it is asynchronous: `upload` records an event
+    after the copy, and the next request waits on it before handing the
+    buffer out again.  A copy into it from the card (`Tensor.copy_` into a
+    `view`) is synchronous and needs no event.
+    """
+
+    def __init__(self):
+        self.buf: Optional[torch.Tensor] = None   # flat uint8, made at first use
         self.copied: Optional[torch.cuda.Event] = None
 
-    def upload(self, x: torch.Tensor, dst: torch.Tensor) -> None:
+    def view(self, shape: Sequence[int], dtype: torch.dtype) -> torch.Tensor:
+        """A contiguous (shape, dtype) prefix of the buffer, once the copy
+        that last read it has run; valid until the next request."""
         if self.copied is not None:
             self.copied.synchronize()
-        self.buf.copy_(x)
-        dst.copy_(self.buf, non_blocking=True)
+        nbytes = math.prod(shape) * dtype.itemsize
+        if self.buf is None or self.buf.numel() < nbytes:
+            self.buf = None   # the smaller buffer goes back first
+            self.buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        return self.buf[:nbytes].view(dtype).view(tuple(shape))
+
+    def upload(self, x: torch.Tensor, dst: torch.Tensor) -> None:
+        """Copy the host tensor `x` into the card's `dst` through the
+        buffer, without waiting for the card."""
+        host = self.view(x.shape, x.dtype)
+        host.copy_(x)
+        dst.copy_(host, non_blocking=True)
         self.copied = torch.cuda.Event()
         self.copied.record()
 
@@ -87,7 +108,7 @@ class CapturedGraph:
 
     def __init__(self, inputs: List[torch.Tensor]):
         self.inputs = inputs
-        self.stages: List[Optional[_Stage]] = [None] * len(inputs)   # made at first use
+        self.stages = [PinnedStage() for _ in inputs]
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.outputs: Tuple[torch.Tensor, ...] = ()
         self.launches: Dict[object, int] = {}   # kernel wrapper -> launches per replay
@@ -99,8 +120,6 @@ class CapturedGraph:
     def load(self, inputs: Sequence[torch.Tensor]) -> None:
         for i, (dst, x) in enumerate(zip(self.inputs, inputs)):
             if x.device.type == "cpu":
-                if self.stages[i] is None:
-                    self.stages[i] = _Stage(dst)
                 self.stages[i].upload(x, dst)
             else:
                 dst.copy_(x)
