@@ -74,11 +74,17 @@ nonzero exit):
      3) down to (32, 16, 32, 3), on clipped flow maps, and its times;
      tvl1_flow at (10, 288, 512), fine_iters 40 (the metrics' flow runs
      inside the metrics chunk's graphs, phase 12): the captured graph
-     torch.equal the eager flow, its launches per replay (20 of K2), ms
-     per call both ways,
+     torch.equal the eager flow, its launches per replay (20 of K2, 1700
+     of K7), ms per call both ways,
      capture seconds and pool bytes, device operations and host launches
      per call both ways; card against CPU at (2, 96, 128), bit for bit; a
-     translation recovered on the card;
+     translation recovered on the card; K7 (the fused primal-dual
+     iteration): the eager flow with K7 against the same flow with each
+     iteration as the plain tensor operations on the card, bit for bit,
+     at the scoring chunk (32, 144, 256), fine_iters 100, and the training
+     shape (10, 288, 512), fine_iters 40; K7's device time per iteration
+     at each level of both pyramids beside the plain operations' and the
+     bound;
  12. quality metrics: the S=1 driver keeping its input grays on the
      40-frame 720p clip, then score_stabilized_clip at 144x256 (launches,
      seconds per clip with the metrics chunk's three graphs captured,
@@ -87,7 +93,7 @@ nonzero exit):
      with the eager chunks, every score equal; each chunk key's graph
      (output stability: prealign and a rect; input stability: prealign;
      cross-video: a rect) torch.equal the eager chunk on the scoring's own
-     first chunk of that key, 20 K2 launches per replay, device operations,
+     first chunk of that key, 20 K2 and 2000 K7 launches per replay, device operations,
      host launches and ms per chunk both ways, capture seconds and pool
      bytes; evaluate_clip card against
      CPU on the driver's first 12 frames at 144x256, and where the devices
@@ -189,7 +195,8 @@ nonzero exit):
      scored clip): exit 0 or 1 as its report says (a pass is not required
      at that schedule), every check of the JAX gate present, and the
      launches: per training step K2 2, K4 1, K6b 1; per served frame K1 and
-     K2m once; per scored clip 20 K2 per tvl1_flow call and nothing else;
+     K2m once; per scored clip 20 K2 and 2000 K7 per tvl1_flow call and
+     nothing else;
      its seconds of training;
  23. endurance: scripts/torch_endurance.py at v2_93 (target 4, segments of
      2 in fresh processes, the second through --restore, 10 examples, one
@@ -459,10 +466,10 @@ def profile_path(engine, clip: np.ndarray, frames: int = 20, device_gray: bool =
 
 # --- phases -----------------------------------------------------------------
 
-SOURCES = ("warp", "warp_grad")
+SOURCES = ("warp", "warp_grad", "tvl1")
 KERNEL_NAMES = ("warp_uint8_kernel", "bilinear_sample_kernel", "warp_mesh_kernel",
                 "splat_max_kernel", "splat_scatter_kernel", "splat_convert_kernel",
-                "sample_map_grad_kernel")
+                "sample_map_grad_kernel", "tvl1_iterate_kernel")
 
 
 def phase_device():
@@ -802,7 +809,7 @@ def phase_path(clips: np.ndarray, dev):
 
     expected = {"bilinear_sample": 0, "warp_mesh": refine * (T - 1),
                 "warp_uint8_cf_lowres": T - 1, "warp_uint8_cf": 0, "bilinear_splat": 0,
-                "sample_map_grad": 0}
+                "sample_map_grad": 0, "tvl1_iterate": 0}
     cuda_warp.reset_launch_counts()
     res = driver.stabilize_clip(clips[0])
     torch.cuda.synchronize()
@@ -1193,7 +1200,8 @@ def phase_train_path(tmp: str):
     for steps, extra in ((4, []), (6, ["--restore"])):
         n = steps - done
         expected = {"bilinear_sample": 2 * n, "warp_mesh": 0, "warp_uint8_cf_lowres": 0,
-                    "warp_uint8_cf": 0, "bilinear_splat": n, "sample_map_grad": n}
+                    "warp_uint8_cf": 0, "bilinear_splat": n, "sample_map_grad": n,
+                    "tvl1_iterate": 0}
         cuda_warp.reset_launch_counts()
         t0 = time.perf_counter()
         with IterTimes() as walls:
@@ -1408,7 +1416,7 @@ def train_graph_run(dev, eager_spread: bool = True):
     stats = [{k: v for k, v in st.items() if k not in ("key", "shapes")}
              for st in state.graphs.stats()]
     want = {"bilinear_sample": 12, "warp_mesh": 0, "warp_uint8_cf_lowres": 0,
-            "warp_uint8_cf": 0, "bilinear_splat": 6, "sample_map_grad": 6}
+            "warp_uint8_cf": 0, "bilinear_splat": 6, "sample_map_grad": 6, "tvl1_iterate": 0}
     counters = (state.step, int(state.step_t), state.opt.count, int(state.opt.count_t))
     problems = []
     if not ok:
@@ -1666,6 +1674,11 @@ def phase_train_times(card: str, gen: torch.Generator, dev, data: str):
 FLOW_SHAPES = ((10, 288, 512), (10, 144, 256), (10, 72, 128), (10, 32, 64))
 # The same in the metrics' calls: 32 pairs at the evaluation scale, 144x256.
 METRICS_FLOW_SHAPES = ((32, 144, 256), (32, 72, 128), (32, 32, 64), (32, 16, 32))
+# K7 launches (primal-dual iterations) per tvl1_flow call: 5 warps a level,
+# 100 iterations a warp at the coarse levels and fine_iters at the finest,
+# 40 on a training batch, 100 in a metrics chunk.
+FLOW_ITERATIONS = 5 * (3 * 100 + 40)
+CHUNK_ITERATIONS = 5 * (3 * 100 + 100)
 
 
 def flow_sample_maps(B: int, H: int, W: int, gen: torch.Generator, device,
@@ -1785,13 +1798,15 @@ def phase_flow(card: str, gen: torch.Generator, dev, clips: np.ndarray):
     color = torch.from_numpy(clips[0, :B + 1]).to(dev).permute(0, 3, 1, 2)
     gray = gray_from_color(color, (H, W))
     a, b = gray[:-1].contiguous(), gray[1:].contiguous()
+    a_train, b_train = a, b
     u = tvl1_flow(a, b)
     torch.cuda.synchronize()
     cuda_warp.reset_launch_counts()
     u = tvl1_flow(a, b)
     torch.cuda.synchronize()
     per_call = launch_counts()
-    expected = {k: 0 for k in per_call} | {"bilinear_sample": 20}
+    expected = {k: 0 for k in per_call} | {"bilinear_sample": 20,
+                                           "tvl1_iterate": FLOW_ITERATIONS}
     check(per_call == expected, f"tvl1_flow launches per replay {per_call}, "
                                 f"expected {expected}")
     check(tuple(u.shape) == tuple(a.shape) + (2,) and bool(torch.isfinite(u).all()),
@@ -1811,7 +1826,8 @@ def phase_flow(card: str, gen: torch.Generator, dev, clips: np.ndarray):
                     for fn in (tvl1_flow, flow_ops.tvl1_flow_eager))
     g_ms, e_ms = float(np.median(walls["graph"])), walls["eager"][0]
     print(f"[11 flow training] {card} | tvl1_flow {tuple(a.shape)} fine_iters 40: the "
-          f"captured graph torch.equal the eager flow; launches per replay K2 20; graph "
+          f"captured graph torch.equal the eager flow; launches per replay K2 20, K7 "
+          f"{FLOW_ITERATIONS}; graph "
           f"{[round(w, 3) for w in walls['graph']]} ms per call, eager {e_ms:.3f} ms "
           f"({e_ms / g_ms:.2f}x); capture and instantiation {cap['capture_s']:.3f} s "
           f"after an eager first call of {cap['warmup_s']:.3f} s, pool "
@@ -1836,7 +1852,66 @@ def phase_flow(card: str, gen: torch.Generator, dev, clips: np.ndarray):
           f"recovered as ({tx:.4f}, {ty:.4f}) on the card (need within 0.2 px)")
     check(torch.equal(card_u, cpu_u), "flow: card and CPU disagree")
     check(abs(tx - 3.6) < 0.2 and abs(ty + 2.3) < 0.2, "flow: translation not recovered")
-    return worst, t, per_call
+    gray = gray_from_color(torch.from_numpy(clips[1, :33]).to(dev).permute(0, 3, 1, 2),
+                           (144, 256))
+    k7 = phase_flow_k7(card, dev, gen, [(gray[:-1].contiguous(), gray[1:].contiguous(), 100),
+                                        (a_train, b_train, 40)])
+    return worst, t, per_call, k7
+
+
+def phase_flow_k7(card: str, dev, gen: torch.Generator, flows):
+    """K7 against the plain arithmetic on the card: each (i0, i1,
+    fine_iters) of `flows` through the whole eager flow with K7, and with
+    each iteration as `tvl1_iterate_plain`'s tensor operations, bit for bit;
+    then a K7 iteration's device time at each level of both pyramids (20
+    chained iterations in a graph) against the plain operations' (also in a
+    graph), and its bound (60 B a pixel over 3.35 TB/s).  Returns K7's
+    numbers at the scoring chunk's finest level for the kernels line."""
+    from stabnet_tpu_torch.ops import flow as flow_ops
+
+    bw, _ = peaks(torch.cuda.get_device_name(0))
+    same = []
+    for i0, i1, fine in flows:
+        fused = flow_ops.tvl1_flow_eager(i0, i1, fine_iters=fine)
+        kernel = flow_ops.tvl1_iterate
+        flow_ops.tvl1_iterate = flow_ops.tvl1_iterate_plain
+        try:
+            plain = flow_ops.tvl1_flow_eager(i0, i1, fine_iters=fine)
+        finally:
+            flow_ops.tvl1_iterate = kernel
+        torch.cuda.synchronize()
+        err = float((fused - plain).abs().max())
+        check(torch.equal(fused, plain), f"K7: the flow at {tuple(i0.shape)} fine_iters "
+                                         f"{fine} differs from the plain arithmetic: max abs {err}")
+        same.append(f"{tuple(i0.shape)} fine_iters {fine}")
+    kw = dict(tau=0.25, lam=0.15, theta=0.3)
+    levels, rows = {}, []
+    for B, H, W in METRICS_FLOW_SHAPES + FLOW_SHAPES:
+        u = torch.randn((B, 2, H, W), generator=gen).to(dev)
+        p = (0.5 * torch.randn((B, 2, 2, H, W), generator=gen)).to(dev)
+        rho_c, gx, gy = ((s * torch.randn((B, H, W), generator=gen)).to(dev)
+                         for s in (20.0, 10.0, 10.0))
+
+        def fused_chain(n=20):
+            uu, pp = u, p
+            for _ in range(n):
+                uu, pp = flow_ops.tvl1_iterate(uu, pp, rho_c, gx, gy, **kw)
+
+        def plain_step():
+            flow_ops.tvl1_iterate_plain(u, p, rho_c, gx, gy, **kw)
+
+        bound = 60 * B * H * W / bw * 1e3
+        ms = device_ms(fused_chain, calls=1, warmup=2, reps=20) / 20
+        plain_ms = device_ms(plain_step, calls=4, reps=5)
+        levels[(B, H, W)] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound}
+        rows.append(f"{(B, H, W)} {ms * 1e3:.2f} us (plain {plain_ms * 1e3:.1f}, bound "
+                    f"{bound * 1e3:.2f}, {100 * bound / ms:.1f}%)")
+    print(f"[11 K7] {card} | tvl1_iterate: the eager flow with K7 equals the plain "
+          f"arithmetic on the card bit for bit at {'; '.join(same)}; device time per "
+          f"iteration (20 chained in a graph; the plain operations in a graph): "
+          + "; ".join(rows))
+    fine = levels[METRICS_FLOW_SHAPES[0]]
+    return {**fine, "bound_by": "bytes", "library_ms": None, "call_ms": None}
 
 
 def phase_metrics(card: str, dev, engine, clips: np.ndarray):
@@ -1859,7 +1934,7 @@ def phase_metrics(card: str, dev, engine, clips: np.ndarray):
     flows = 2 * chunks(T - 1) + chunks(T)   # output and input stability, cross-video
     expected = {"bilinear_sample": 20 * flows, "warp_mesh": T - 1,
                 "warp_uint8_cf_lowres": T - 1, "warp_uint8_cf": 0, "bilinear_splat": 0,
-                "sample_map_grad": 0}
+                "sample_map_grad": 0, "tvl1_iterate": CHUNK_ITERATIONS * flows}
     cuda_warp.reset_launch_counts()
     t0 = time.perf_counter()
     res = driver.stabilize_clip(clips[0])
@@ -1951,7 +2026,7 @@ def metrics_graphs(card: str, dev, cfg, res, scores: dict) -> None:
     scoring: the clip scored again through them (its wall split into the
     grays, the chunks and the rest) and with the eager chunks, every score
     equal; each key's graph torch.equal the eager chunk on the eager
-    scoring's first chunk of that key, 20 K2 launches per replay, ms,
+    scoring's first chunk of that key, 20 K2 and 2000 K7 launches per replay, ms,
     device operations and host launches per chunk, capture seconds and
     pool bytes."""
     import stabnet_tpu_torch.eval.metrics as metrics_module
@@ -2017,7 +2092,7 @@ def metrics_graphs(card: str, dev, cfg, res, scores: dict) -> None:
         graph_ms = (time.perf_counter() - t0) * 1e3
         per_call = launch_counts()
         check(torch.equal(got, want), f"metrics chunk, {what}: the graph differs from eager")
-        check(per_call == zero | {"bilinear_sample": 20},
+        check(per_call == zero | {"bilinear_sample": 20, "tvl1_iterate": CHUNK_ITERATIONS},
               f"metrics chunk, {what}: launches per replay {per_call}")
         ops, ms, host = device_ops(lambda: _pairs_h_chunk(a, b, r, prealign=key[0]))
         note = (f"{what}: {graph_ms:.3f} ms per chunk as a graph against {eager_ms:.3f} "
@@ -2035,7 +2110,7 @@ def metrics_graphs(card: str, dev, cfg, res, scores: dict) -> None:
     print(f"[12 metrics graphs] {card} | the clip scored again through the chunks' graphs "
           f"{split(graph_split)} and with the eager chunks {split(eager_split)}, every score "
           f"equal; each key's graph torch.equal the eager chunk on the eager scoring's first "
-          f"chunk of that key, 20 K2 per replay: " + "; ".join(notes)
+          f"chunk of that key, 20 K2 and {CHUNK_ITERATIONS} K7 per replay: " + "; ".join(notes)
           + ". Graphs (prealign, rect given): " + "; ".join(graphs))
 
 
@@ -2107,13 +2182,14 @@ def phase_flow_train(card: str, tmp: str, data: str, flowless_iter_ms: float):
     launches = launch_counts()
     # Each step launches K2 twice (the K5 and K6 forwards), each batch the
     # pipeline made (the steps', and up to 3 more it had in hand or queued
-    # when it was closed) 20 times in its flow.
+    # when it was closed) 20 times in its flow, and K7 once per iteration.
     n = FLOW_STEPS
     batches = (launches["bilinear_sample"] - 2 * n) / 20
     rest = {k: v for k, v in launches.items() if k != "bilinear_sample"}
     check(batches == int(batches) and n <= batches <= n + 3
           and rest == {"warp_mesh": 0, "warp_uint8_cf_lowres": 0, "warp_uint8_cf": 0,
-                       "bilinear_splat": n, "sample_map_grad": n},
+                       "bilinear_splat": n, "sample_map_grad": n,
+                       "tvl1_iterate": FLOW_ITERATIONS * int(batches)},
           f"train --compute-flow launches {launches}")
     with open(os.path.join(log_dir, "metrics.jsonl")) as f:
         rows = [r for r in map(json.loads, f) if r["tag"] == "train"]
@@ -2128,7 +2204,8 @@ def phase_flow_train(card: str, tmp: str, data: str, flowless_iter_ms: float):
     iter_ms = float(np.mean(walls.ms(skip=3)))
     print(f"[13 flow train] {card} | train --compute-flow, v2_93 bf16 batch 10, {n} steps "
           f"through the CLI, training {seconds:.1f} s (refused without --compute-flow): "
-          f"launches {launches} (K2: 2 per step + 20 per tvl1_flow, {int(batches)} batches "
+          f"launches {launches} (K2: 2 per step + 20 per tvl1_flow, K7 {FLOW_ITERATIONS} "
+          f"per tvl1_flow, {int(batches)} batches "
           f"made); temporal loss live (step 0 temp {rows[0]['temp']:.6g}, total "
           f"{rows[0]['total']:.6g}); {iter_ms:.3f} ms per iteration, the mean of the "
           f"walls between the loop's log lines after the first three ({walls.ms(skip=0)}; "
@@ -3051,7 +3128,8 @@ def phase_sharded(card: str, dev, engine, clips: np.ndarray):
 
 # The doctor's names of the kernels, by their wrappers' names.
 DOCTOR_NAMES = {"warp_uint8_cf_lowres": "K1", "bilinear_sample": "K2", "warp_mesh": "K2m",
-                "warp_uint8_cf": "K3", "bilinear_splat": "K4", "sample_map_grad": "K6b"}
+                "warp_uint8_cf": "K3", "bilinear_splat": "K4", "sample_map_grad": "K6b",
+                "tvl1_iterate": "K7"}
 
 
 def run_doctor_cli(*argv, env=None, timeout: float = 300):
@@ -3330,7 +3408,7 @@ def phase_quality_gate(card: str, tmp: str):
     steps), every check of the JAX gate present, and the launches: per
     training step K2 2, K4 1 and K6b 1; per served frame K2m and K1 once
     (each of the two batches: trained and random weights); per scored clip
-    20 K2 in each tvl1_flow call, nothing else.  Returns the whole run's
+    20 K2 and 2000 K7 in each tvl1_flow call, nothing else.  Returns the whole run's
     launches."""
     here = os.path.dirname(os.path.abspath(__file__))
     cmd = [sys.executable, os.path.abspath(__file__), GATE, *GATE_ARGS,
@@ -3356,7 +3434,9 @@ def phase_quality_gate(card: str, tmp: str):
             "serve": [zero | {"warp_mesh": T - 1, "warp_uint8_cf_lowres": T - 1}] * 2,
             # tvl1_flow calls per clip: the output's and the input's
             # inter-frame pairs and the input-to-output pairs, 32 per call.
-            "score": [zero | {"bilinear_sample": 20 * (2 * -(-(T - 1) // 32) + -(-T // 32))}]
+            "score": [zero | {k: n * (2 * -(-(T - 1) // 32) + -(-T // 32))
+                              for k, n in (("bilinear_sample", 20),
+                                           ("tvl1_iterate", CHUNK_ITERATIONS))}]
             * (2 * clips)}
     check(record == want, f"quality gate launches {record}, expected {want}")
     seconds = [ln for ln in proc.stderr.splitlines() if ln.startswith("quality gate on")]
@@ -3475,9 +3555,10 @@ def main() -> int:
     timed(5, phase_card_vs_cpu, clips, dev)
     kernels, timed_ms = timed(6, phase_times, card, gen, dev, engine, driver, clips, grays,
                               launches, errs)
-    flow_err, flow_timed, flow_launches = timed(11, phase_flow, card, gen, dev, clips)
+    flow_err, flow_timed, flow_launches, k7_timed = timed(11, phase_flow, card, gen, dev, clips)
     errs["bilinear_sample"] = max(errs["bilinear_sample"], flow_err)
     timed_ms[("bilinear_sample", "(10, 288, 512, 3) edge-inclusive")] = flow_timed
+    timed_ms[("tvl1_iterate", "(32, 144, 256)")] = k7_timed
     timed(12, phase_metrics, card, dev, engine, clips)
     batch_launches = timed(14, phase_serving_modes, card, dev, engine, clips, eager1)
     export_launches, export_batch_launches = timed(16, phase_export, card, dev, engine, clips)
@@ -3519,6 +3600,11 @@ def main() -> int:
             ("sample_map_grad", "(20, 288, 512, 1)", "stabnet_tpu/ops/pallas_warp.py:946")):
         kernels.append(kernel_row(name, replaces, train_launches[name], errs[name], timed_ms,
                                   label, source="warp_grad.cu"))
+    # K7 runs in the flow: its launches are one tvl1_flow call's, its error
+    # against the plain arithmetic 0 (phase 11 checks it bit for bit).
+    kernels.append(kernel_row("tvl1_iterate", "none: XLA's fusion of the loop body of "
+                              "stabnet_tpu/ops/flow.py _tvl1_level", flow_launches["tvl1_iterate"],
+                              0.0, timed_ms, "(32, 144, 256)", source="tvl1.cu"))
     for row in kernels:
         row["launches_serving"] = launches[row["name"]]
         row["launches_train"] = train_launches[row["name"]]

@@ -18,7 +18,7 @@ Checks:
              the CPU's liveness.
   kernels  - build the CUDA kernels (ops/cuda_build.py, seconds recorded),
              call each `torch.ops.stabnet` op once at a small shape on the
-             card (K1, K2 in both edge modes, K2m, K3, K4, K6b) and hold it
+             card (K1, K2 in both edge modes, K2m, K3, K4, K6b, K7) and hold it
              against the same op on CPU tensors, its plain version, bit for
              bit; each kernel's launches and max error.  With `--device
              cpu` the plain versions run and the check says so.
@@ -96,7 +96,7 @@ def _kernel_cases(device):
     import numpy as np
     import torch
 
-    from stabnet_tpu_torch.ops import cuda_warp
+    from stabnet_tpu_torch.ops import cuda_warp, flow
     from stabnet_tpu_torch.ops.warp import mesh_tables
 
     rng = np.random.RandomState(0)
@@ -114,6 +114,9 @@ def _kernel_cases(device):
     Hs = t(np.eye(3, dtype=np.float32)
            + rng.uniform(-0.05, 0.05, (B, 4, 4, 3, 3)).astype(np.float32))
     tables = tuple(mesh_tables(H, W, 4, 4, torch.device(device)))
+    u = t(rng.randn(B, 2, H, W).astype(np.float32))
+    p = t(rng.randn(B, 2, 2, H, W).astype(np.float32))
+    rho_c, gx, gy = (t(s * rng.randn(B, H, W).astype(np.float32)) for s in (20, 10, 10))
     ops = torch.ops.stabnet
     return [
         ("K1", cuda_warp.warp_uint8_cf_lowres,
@@ -125,6 +128,8 @@ def _kernel_cases(device):
         ("K3", cuda_warp.warp_uint8_cf, [(ops.warp_uint8_cf, (imc, x, y))]),
         ("K4", cuda_warp.bilinear_splat, [(ops.bilinear_splat, (g, x, y, [H, W]))]),
         ("K6b", cuda_warp.sample_map_grad, [(ops.sample_map_grad, (im, x, y, g))]),
+        ("K7", flow.tvl1_iterate,
+         [(ops.tvl1_iterate, (u, p, rho_c, gx, gy, 0.25, 0.15, 0.3))]),
     ]
 
 
@@ -147,7 +152,7 @@ def kernel_probe(device: str) -> dict:
     report = {"device": dev.type}
     if dev.type == "cuda":
         t0 = time.time()
-        cuda_build.build(["warp", "warp_grad"])
+        cuda_build.build(["warp", "warp_grad", "tvl1"])
         report["build_seconds"] = round(time.time() - t0, 3)
     kernels = {}
     with torch.inference_mode():

@@ -35,7 +35,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from stabnet_tpu_torch.ops.flow import tvl1_flow_eager
+from stabnet_tpu_torch.ops.flow import tvl1_flow_eager, tvl1_schedule
 from stabnet_tpu_torch.utils import device_constant, resolve_device
 from stabnet_tpu_torch.utils.graphs import GraphCache
 from stabnet_tpu_torch.utils.profiling import span
@@ -357,8 +357,15 @@ def _pairs_h(a: torch.Tensor, b: torch.Tensor, rect=None,
                 cb = torch.cat([cb, cb[-1:].expand(_EVAL_CHUNK - k, -1, -1)])
             out.append(_pairs_h_chunk(ca, cb, rect, prealign=prealign)[:k])
         if kept is not None:
-            # The pairs scored, and the chunks' slots they were padded to.
-            kept.counters.update(pairs=a.shape[0], slots=len(out) * _EVAL_CHUNK)
+            # The pairs scored, and the chunks' slots they were padded to;
+            # the flow's primal-dual iterations (K7 launches on the card)
+            # and the pixels they updated, from its schedule.
+            levels = tvl1_schedule(_EVAL_CHUNK, *a.shape[1:], fine_iters=_FINE_ITERS)
+            iters = [lv.warps * lv.iters for lv in levels]
+            kept.counters.update(
+                pairs=a.shape[0], slots=len(out) * _EVAL_CHUNK,
+                tvl1_launches=len(out) * sum(iters),
+                tvl1_px=len(out) * sum(n * math.prod(lv.shape) for n, lv in zip(iters, levels)))
         return torch.cat(out)
 
 

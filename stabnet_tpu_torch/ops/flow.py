@@ -5,27 +5,32 @@ loss's flow on the device from the augmented stable pair (`train
 --compute-flow`), and the quality metrics (eval/metrics.py) measure camera
 motion with it.
 
-The coarse-to-fine pyramid, the warps and the primal-dual iterations are
-plain Python loops of batched elementwise tensor operations, each element's
-arithmetic in the JAX package's order.  The flow is carried channels first,
-u as (B, 2, H, W) and its dual p as (B, 2, 2, H, W) (component, direction),
-so the two components' proximal steps are one batched operation.  Every
-warp samples the second image and its gradient, three channels, through
-kernel K2 in its edge-inclusive mode (`cuda_warp.bilinear_sample` with
-`strict_edge=False`, the Pallas sampler's `strict_edge=False` in the JAX
-package): one launch per level and warp on CUDA tensors, its plain version
-on CPU tensors.  On the card the whole pyramid runs as one captured CUDA
-graph (`tvl1_flow`; `tvl1_flow_eager` is the same arithmetic issued one
-operation at a time, the CPU path).
+The coarse-to-fine pyramid and the warps are plain Python loops of batched
+tensor operations, each element's arithmetic in the JAX package's order.
+The flow is carried channels first, u as (B, 2, H, W) and its dual p as
+(B, 2, 2, H, W) (component, direction), so the two components' proximal
+steps are one batched operation.  Every warp samples the second image and
+its gradient, three channels, through kernel K2 in its edge-inclusive mode
+(`cuda_warp.bilinear_sample` with `strict_edge=False`, the Pallas sampler's
+`strict_edge=False` in the JAX package): one launch per level and warp on
+CUDA tensors, its plain version on CPU tensors.  Each primal-dual iteration
+is one call of `torch.ops.stabnet.tvl1_iterate` (K7, csrc/tvl1.cu): on CUDA
+tensors one launch that reads u, p and the warp's residual and gradient and
+writes the new u and p, on CPU tensors its plain version,
+`tvl1_iterate_plain`, some forty tensor operations in the order the kernel
+repeats.  On the card the whole pyramid runs as one captured CUDA graph
+(`tvl1_flow`; `tvl1_flow_eager` is the same arithmetic issued one operation
+at a time, the CPU path).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+from typing import List, NamedTuple, Tuple
 
 import torch
 
-from stabnet_tpu_torch.ops import cuda_warp
+from stabnet_tpu_torch.ops import cuda_build, cuda_warp
 from stabnet_tpu_torch.ops.resize import resize_bilinear_bhw
 from stabnet_tpu_torch.utils.graphs import GraphCache
 
@@ -74,7 +79,9 @@ def _grad_central(im: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _grad_forward(u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Forward differences of (..., H, W), zero at the far border."""
+    """Forward differences of (..., H, W): gx[x] = u[x + 1] - u[x] for x <
+    W - 1 and 0 (+0.0) at x = W - 1; gy likewise down the rows, 0 at
+    y = H - 1.  K7 (csrc/tvl1.cu) takes the new u's gradient by this rule."""
     gx = torch.cat([u[..., 1:] - u[..., :-1], torch.zeros_like(u[..., :1])], dim=-1)
     gy = torch.cat([u[..., 1:, :] - u[..., :-1, :], torch.zeros_like(u[..., :1, :])],
                    dim=-2)
@@ -82,12 +89,135 @@ def _grad_forward(u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _divergence(px: torch.Tensor, py: torch.Tensor) -> torch.Tensor:
-    """Backward-difference divergence of (..., H, W), adjoint of _grad_forward."""
+    """Backward-difference divergence of (..., H, W), adjoint of
+    _grad_forward: dx = px[0] at x = 0, px[x] - px[x - 1] inside, -px[W - 2]
+    at x = W - 1 (the first rule wins where W = 1); dy likewise down the
+    rows with py; the result dx + dy.  K7 (csrc/tvl1.cu) takes the
+    divergence by this rule."""
     dx = torch.cat([px[..., :1], px[..., 1:-1] - px[..., :-2], -px[..., -2:-1]],
                    dim=-1)
     dy = torch.cat([py[..., :1, :], py[..., 1:-1, :] - py[..., :-2, :],
                     -py[..., -2:-1, :]], dim=-2)
     return dx + dy
+
+
+def tvl1_iterate_plain(u: torch.Tensor, p: torch.Tensor, rho_c: torch.Tensor,
+                       gx: torch.Tensor, gy: torch.Tensor, *, tau: float, lam: float,
+                       theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One primal-dual iteration of TV-L1 at one warp: the new (u, p).
+
+    u (B, 2, H, W) the flow, p (B, 2, 2, H, W) its dual field (component,
+    direction), rho_c (B, H, W) the linearized residual's constant part and
+    gx, gy (B, H, W) the warped second image's gradient, all float32.  The
+    pointwise thresholding of the data term, then the TV proximal step on
+    both components through their dual fields.  Each product, sum and
+    quotient is one tensor operation, in the order K7 repeats; each Python
+    number reaches the operations rounded to float32 once.
+    """
+    l_t = lam * theta
+    sigma = tau / theta
+    eps = 1e-9
+    # The thresholds and the three candidate steps' factors, each rounded
+    # as the JAX body rounds it.
+    grad_sq = gx * gx + gy * gy
+    g = torch.stack([gx, gy], dim=1)                  # (B, 2, H, W)
+    lo_thr, hi_thr = -l_t * grad_sq, l_t * grad_sq
+    den_sq = grad_sq.clamp_min(eps)[:, None]
+    # rho(u') = I1w + <gradI1w, u' - u0> - I0, linearized at u0.
+    rho = rho_c + gx * u[:, 0] + gy * u[:, 1]
+    # Pointwise thresholding: exact minimizer of the L1 data term.
+    case_lo = (rho < lo_thr)[:, None]
+    case_hi = (rho > hi_thr)[:, None]
+    d = torch.where(case_lo, l_t * g,
+                    torch.where(case_hi, -l_t * g, -rho[:, None] * g / den_sq))
+    v = u + d
+    # TV proximal step on both flow components via their dual fields.
+    u = v + theta * _divergence(p[:, :, 0], p[:, :, 1])
+    gux, guy = _grad_forward(u)
+    den = 1.0 + sigma * _sqrt(gux * gux + guy * guy)
+    p = torch.stack([(p[:, :, 0] + sigma * gux) / den,
+                     (p[:, :, 1] + sigma * guy) / den], dim=2)
+    return u, p
+
+
+def _tvl1_lib() -> ctypes.CDLL:
+    lib = cuda_build.load("tvl1")
+    if not getattr(lib, "_stabnet_typed", False):
+        lib.stabnet_tvl1_iterate_f32.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+                                                 + [ctypes.c_float] * 4 + [ctypes.c_void_p])
+        lib.stabnet_tvl1_iterate_f32.restype = ctypes.c_int
+        lib._stabnet_typed = True
+    return lib
+
+
+def _check_iterate(u, p, rho_c, gx, gy) -> None:
+    """K7 takes float32 contiguous u (B, 2, H, W), p (B, 2, 2, H, W) and
+    rho_c, gx, gy (B, H, W) of one shape; checked on every device, so the
+    plain version takes exactly what the kernel takes."""
+    tensors = (u, p, rho_c, gx, gy)
+    cuda_warp._require(all(t.dtype == torch.float32 for t in tensors),
+                       f"tvl1_iterate: tensors must be float32, got "
+                       f"{[str(t.dtype) for t in tensors]}")
+    cuda_warp._require(rho_c.dim() == 3, f"tvl1_iterate: rho_c must be (B, H, W), got "
+                                         f"{tuple(rho_c.shape)}")
+    B, H, W = (int(v) for v in rho_c.shape)
+    want = ((B, 2, H, W), (B, 2, 2, H, W), (B, H, W), (B, H, W), (B, H, W))
+    cuda_warp._require(all(tuple(t.shape) == s for t, s in zip(tensors, want)),
+                       f"tvl1_iterate: shapes {[tuple(t.shape) for t in tensors]}, "
+                       f"expected {list(want)}")
+    cuda_warp._require(all(t.is_contiguous() for t in tensors),
+                       "tvl1_iterate: tensors must be contiguous")
+    cuda_warp._check_index_range("tvl1_iterate", (H, W), B, -(-H // 8), 4 * H * W)
+
+
+@torch.library.custom_op(
+    "stabnet::tvl1_iterate", mutates_args=(), device_types="cpu",
+    schema="(Tensor u, Tensor p, Tensor rho_c, Tensor gx, Tensor gy, float tau, "
+           "float lam, float theta) -> (Tensor, Tensor)")
+def _tvl1_iterate_op(u, p, rho_c, gx, gy, tau, lam, theta):
+    return tvl1_iterate_plain(u, p, rho_c, gx, gy, tau=tau, lam=lam, theta=theta)
+
+
+@_tvl1_iterate_op.register_kernel("cuda")
+def _tvl1_iterate_cuda(u, p, rho_c, gx, gy, tau, lam, theta):
+    cuda_warp._on_card(u, p, rho_c, gx, gy)
+    _check_iterate(u, p, rho_c, gx, gy)
+    B, H, W = rho_c.shape
+    u_out, p_out = torch.empty_like(u), torch.empty_like(p)
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream(u.device).cuda_stream
+        # Each Python number rounded to float32 once, as PyTorch hands a
+        # scalar to a float32 kernel (ctypes rounds to nearest).
+        err = _tvl1_lib().stabnet_tvl1_iterate_f32(
+            u.data_ptr(), p.data_ptr(), rho_c.data_ptr(), gx.data_ptr(), gy.data_ptr(),
+            u_out.data_ptr(), p_out.data_ptr(), B, H, W, lam * theta, theta, tau / theta,
+            1e-9, stream)
+    cuda_warp._launch_check(err, "tvl1_iterate")
+    cuda_warp._launched(tvl1_iterate)
+    return u_out, p_out
+
+
+@_tvl1_iterate_op.register_fake
+def _tvl1_iterate_fake(u, p, rho_c, gx, gy, tau, lam, theta):
+    return torch.empty_like(u), torch.empty_like(p)
+
+
+def tvl1_iterate(u: torch.Tensor, p: torch.Tensor, rho_c: torch.Tensor, gx: torch.Tensor,
+                 gy: torch.Tensor, *, tau: float, lam: float,
+                 theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K7: `tvl1_iterate_plain` as one CUDA kernel (plain version on CPU),
+    through `torch.ops.stabnet.tvl1_iterate`; fresh (u, p), the inputs
+    untouched.  Shapes and types as `_check_iterate` says."""
+    cuda_warp._no_grad_inputs("tvl1_iterate", u, p, rho_c, gx, gy)
+    _check_iterate(u, p, rho_c, gx, gy)
+    cuda_warp._on_cpu(u, p, rho_c, gx, gy)
+    return torch.ops.stabnet.tvl1_iterate(u, p, rho_c, gx, gy, float(tau), float(lam),
+                                          float(theta))
+
+
+tvl1_iterate.launches = 0
+# Counted and reset with the warp kernels.
+cuda_warp.KERNELS += (tvl1_iterate,)
 
 
 def _tvl1_level(i0: torch.Tensor, i1: torch.Tensor, u: torch.Tensor, *,
@@ -100,9 +230,7 @@ def _tvl1_level(i0: torch.Tensor, i1: torch.Tensor, u: torch.Tensor, *,
     xs = torch.arange(W, dtype=torch.float32, device=dev)
     g1x, g1y = _grad_central(i1)
     fields = torch.stack([i1, g1x, g1y], dim=-1)      # (B, H, W, 3)
-    l_t = lam * theta
-    sigma = tau / theta
-    eps = 1e-9
+    u = u.contiguous()                                # K7 takes contiguous tensors
     p = torch.zeros((B, 2, 2, H, W), dtype=torch.float32, device=dev)
     for _ in range(num_warps):
         u0x, u0y = u[:, 0], u[:, 1]
@@ -110,31 +238,35 @@ def _tvl1_level(i0: torch.Tensor, i1: torch.Tensor, u: torch.Tensor, *,
         # 3-channel pass of K2).
         w = _warp_fields(fields, xs + u0x, ys + u0y).permute(3, 0, 1, 2).contiguous()
         i1w, gx, gy = w[0], w[1], w[2]
-        grad_sq = gx * gx + gy * gy
         # rho(u') = I1w + <gradI1w, u' - u0> - I0, linearized at u0.
         rho_c = i1w - gx * u0x - gy * u0y - i0
-        # Invariant over the iterations: the thresholds and the three
-        # candidate steps' factors, each rounded as the JAX body rounds it.
-        g = w[1:]                                     # (2, B, H, W): gx, gy
-        lo_thr, hi_thr = -l_t * grad_sq, l_t * grad_sq
-        step_lo, step_hi = (l_t * g).transpose(0, 1), (-l_t * g).transpose(0, 1)
-        g_b = g.transpose(0, 1)                       # (B, 2, H, W)
-        den_sq = grad_sq.clamp_min(eps)[:, None]
         for _ in range(num_iters):
-            rho = rho_c + gx * u[:, 0] + gy * u[:, 1]
-            # Pointwise thresholding: exact minimizer of the L1 data term.
-            case_lo = (rho < lo_thr)[:, None]
-            case_hi = (rho > hi_thr)[:, None]
-            d = torch.where(case_lo, step_lo,
-                            torch.where(case_hi, step_hi, -rho[:, None] * g_b / den_sq))
-            v = u + d
-            # TV proximal step on both flow components via their dual fields.
-            u = v + theta * _divergence(p[:, :, 0], p[:, :, 1])
-            gux, guy = _grad_forward(u)
-            den = 1.0 + sigma * _sqrt(gux * gux + guy * guy)
-            p = torch.stack([(p[:, :, 0] + sigma * gux) / den,
-                             (p[:, :, 1] + sigma * guy) / den], dim=2)
+            u, p = tvl1_iterate(u, p, rho_c, gx, gy, tau=tau, lam=lam, theta=theta)
     return u
+
+
+class Tvl1Level(NamedTuple):
+    """One pyramid level of a `tvl1_flow` call: the frames' shape (B, h, w)
+    there, its warps and the primal-dual iterations of each warp (one K7
+    launch each on the card)."""
+    shape: Tuple[int, int, int]
+    warps: int
+    iters: int
+
+
+def tvl1_schedule(B: int, H: int, W: int, num_levels: int = 4, num_warps: int = 5,
+                  num_iters: int = 100, fine_iters: int = 40) -> List[Tvl1Level]:
+    """The pyramid `tvl1_flow_eager` runs for (B, H, W) frames and its
+    arguments, finest level first: coarse shapes halved and rounded down to
+    multiples of 8, at least 16 (as the JAX package rounds them for the
+    TPU's layout); `fine_iters` iterations a warp at the finest level,
+    `num_iters` elsewhere."""
+    shapes = [(H, W)]
+    for _ in range(num_levels - 1):
+        h, w = shapes[-1]
+        shapes.append((max(h // 2 // 8 * 8, 16), max(w // 2 // 8 * 8, 16)))
+    return [Tvl1Level((B, h, w), num_warps, fine_iters if lvl == 0 else num_iters)
+            for lvl, (h, w) in enumerate(shapes)]
 
 
 # The flow's captured graphs, one per shape and static arguments, for the
@@ -187,7 +319,9 @@ def tvl1_flow_eager(i0: torch.Tensor, i1: torch.Tensor, *, num_levels: int = 4,
 
     Returns:
       (B, H, W, 2) float32 pixel displacement u with i0(p) ~= i1(p + u(p)).
-      On CUDA tensors one call launches K2 num_levels * num_warps times.
+      On CUDA tensors one call launches K2 num_levels * num_warps times and
+      K7 once per primal-dual iteration, num_warps * ((num_levels - 1) *
+      num_iters + fine_iters) times (`tvl1_schedule`).
       No value goes to the host: the intensity range stays on the device,
       so the whole call can be captured as one graph.
     """
@@ -198,25 +332,19 @@ def tvl1_flow_eager(i0: torch.Tensor, i1: torch.Tensor, *, num_levels: int = 4,
     i0 = (i0.float() - lo) * scale
     i1 = (i1.float() - lo) * scale
 
-    # Static pyramid (coarse shapes rounded to multiples of 8, as the JAX
-    # package rounds them for the TPU's layout).
-    shapes = [(H, W)]
-    for _ in range(num_levels - 1):
-        h, w = shapes[-1]
-        shapes.append((max(h // 2 // 8 * 8, 16), max(w // 2 // 8 * 8, 16)))
+    levels = tvl1_schedule(B, H, W, num_levels, num_warps, num_iters, fine_iters)
     pyr0, pyr1 = [i0], [i1]
-    for hw in shapes[1:]:
-        pyr0.append(resize_bilinear_bhw(pyr0[-1], hw))
-        pyr1.append(resize_bilinear_bhw(pyr1[-1], hw))
+    for level in levels[1:]:
+        pyr0.append(resize_bilinear_bhw(pyr0[-1], level.shape[1:]))
+        pyr1.append(resize_bilinear_bhw(pyr1[-1], level.shape[1:]))
 
-    u = torch.zeros((B, 2) + shapes[-1], dtype=torch.float32, device=i0.device)
+    u = torch.zeros((B, 2) + levels[-1].shape[1:], dtype=torch.float32, device=i0.device)
     for lvl in range(num_levels - 1, -1, -1):
-        u = _tvl1_level(pyr0[lvl], pyr1[lvl], u, num_warps=num_warps,
-                        num_iters=(fine_iters if lvl == 0 else num_iters),
-                        tau=tau, lam=lam, theta=theta)
+        u = _tvl1_level(pyr0[lvl], pyr1[lvl], u, num_warps=levels[lvl].warps,
+                        num_iters=levels[lvl].iters, tau=tau, lam=lam, theta=theta)
         if lvl > 0:
-            h, w = shapes[lvl - 1]
-            hs, ws = shapes[lvl]
+            h, w = levels[lvl - 1].shape[1:]
+            hs, ws = levels[lvl].shape[1:]
             # Up-sample the flow and rescale the displacement units.
             up = resize_bilinear_bhw(u, (h, w))
             u = torch.stack([up[:, 0] * (w / ws), up[:, 1] * (h / hs)], dim=1)

@@ -298,7 +298,7 @@ def test_launches_are_counted_per_replay():
         worker.join(timeout=10)
         assert not worker.is_alive()
     assert record == {cuda_warp.warp_mesh: 2, cuda_warp.warp_uint8_cf_lowres: 1}
-    assert [k.launches for k in cuda_warp.KERNELS] == [1, 0, 0, 0, 0, 0]
+    assert [k.launches for k in cuda_warp.KERNELS] == [1, 0, 0, 0, 0, 0, 0]
     for _ in range(3):
         cuda_warp.add_launches(record)
     assert cuda_warp.warp_mesh.launches == 6
@@ -392,3 +392,4 @@ def test_card_flow_graph_equals_the_eager_flow(card):
         torch.cuda.synchronize()
         assert torch.equal(got, want)
         assert cuda_warp.bilinear_sample.launches == 20
+        assert flow_ops.tvl1_iterate.launches == 5 * (3 * 10 + 5)

@@ -45,7 +45,7 @@ from stabnet_tpu_torch.config import get_config
 from stabnet_tpu_torch.data.synthetic import make_video
 from stabnet_tpu_torch.eval import metrics as tm
 from stabnet_tpu_torch.models import make_model, scale_theta_head
-from stabnet_tpu_torch.ops import cuda_warp
+from stabnet_tpu_torch.ops import cuda_warp, flow
 from stabnet_tpu_torch.stream import StreamEngine, video_io
 from stabnet_tpu_torch.stream.export import (ExportedEngine, _load_program,
                                              export_scan_segment, export_stream_step,
@@ -354,7 +354,7 @@ def card():
 @pytest.mark.parametrize("prealign,with_rect", KEYS)
 def test_card_chunk_graph_equals_the_eager_chunk(card, prealign, with_rect):
     """Capture, then two replays on other frames and rects: torch.equal the
-    eager chunk each time, 20 K2 launches per call (counted per replay),
+    eager chunk each time, 20 K2 and 2000 K7 launches per call (counted per replay),
     and each result still its own after the next call."""
     rects = [RECT, (3.0, 6.0, 40.0, 57.0), RECT] if with_rect else [None] * 3
     kept = []
@@ -366,6 +366,7 @@ def test_card_chunk_graph_equals_the_eager_chunk(card, prealign, with_rect):
         got = tm._pairs_h_chunk(a, b, _rect(r), prealign=prealign)
         torch.cuda.synchronize()
         assert cuda_warp.bilinear_sample.launches == 20
+        assert flow.tvl1_iterate.launches == 5 * (3 * 100 + tm._FINE_ITERS)
         assert torch.equal(got, want)
         kept.append((got, want))
     for got, want in kept:

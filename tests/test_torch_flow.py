@@ -13,6 +13,8 @@ difference, and the iterations carry it on).  The port also passes the JAX
 package's own accuracy checks (tests/test_flow.py).
 """
 
+import time
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -151,3 +153,144 @@ def test_tvl1_flow_matches_jax_at_model_scale():
     diff = np.abs(tvl1_flow(_t(a), _t(b)).numpy() - want)
     assert diff.max() <= 0.5 and diff.mean() <= 1e-4, (diff.max(), diff.mean())
     assert np.percentile(diff, 99.9) <= 5e-3
+
+
+# --- K7: one primal-dual iteration (torch.ops.stabnet.tvl1_iterate) ---------
+
+TAU, LAM, THETA = 0.25, 0.15, 0.3
+
+
+def _inline_iteration(u, p, rho_c, gx, gy, tau=TAU, lam=LAM, theta=THETA):
+    """The body of `_tvl1_level`'s inner loop before it became an op, frozen
+    as it was (its warp-invariant set-up included): the arithmetic K7 and
+    `tvl1_iterate_plain` are held to."""
+    w1 = torch.stack([gx, gy])                        # w[1:] of the warp
+    grad_sq = gx * gx + gy * gy
+    l_t = lam * theta
+    sigma = tau / theta
+    eps = 1e-9
+    g = w1
+    lo_thr, hi_thr = -l_t * grad_sq, l_t * grad_sq
+    step_lo, step_hi = (l_t * g).transpose(0, 1), (-l_t * g).transpose(0, 1)
+    g_b = g.transpose(0, 1)
+    den_sq = grad_sq.clamp_min(eps)[:, None]
+    rho = rho_c + gx * u[:, 0] + gy * u[:, 1]
+    case_lo = (rho < lo_thr)[:, None]
+    case_hi = (rho > hi_thr)[:, None]
+    d = torch.where(case_lo, step_lo,
+                    torch.where(case_hi, step_hi, -rho[:, None] * g_b / den_sq))
+    v = u + d
+    u = v + theta * flow._divergence(p[:, :, 0], p[:, :, 1])
+    gux, guy = flow._grad_forward(u)
+    den = 1.0 + sigma * flow._sqrt(gux * gux + guy * guy)
+    p = torch.stack([(p[:, :, 0] + sigma * gux) / den,
+                     (p[:, :, 1] + sigma * guy) / den], dim=2)
+    return u, p
+
+
+def _iterate_inputs(seed, B, H, W):
+    """Seeded float32 (u, p, rho_c, gx, gy) whose residuals fall in all
+    three thresholding cases (|rho| against lam * theta * |grad|^2)."""
+    rng = np.random.RandomState(seed)
+    f = lambda *s, scale=1.0: _t((rng.randn(*s) * scale).astype(np.float32))
+    return (f(B, 2, H, W, scale=2.0), f(B, 2, 2, H, W, scale=0.5), f(B, H, W, scale=20.0),
+            f(B, H, W, scale=10.0), f(B, H, W, scale=10.0))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("shape", [(2, 16, 32), (3, 40, 24), (2, 72, 128)])
+def test_tvl1_iterate_equals_the_inline_body(shape, seed):
+    """The op on the CPU, over three chained iterations, equals the frozen
+    inline body bit for bit, each thresholding case taken."""
+    u, p, rho_c, gx, gy = _iterate_inputs(seed, *shape)
+    rho = rho_c + gx * u[:, 0] + gy * u[:, 1]
+    thr = LAM * THETA * (gx * gx + gy * gy)
+    for case in (rho < -thr, rho > thr, (rho >= -thr) & (rho <= thr)):
+        assert int(case.sum()) > 0
+    want_u, want_p = u, p
+    for _ in range(3):
+        u, p = torch.ops.stabnet.tvl1_iterate(u, p, rho_c, gx, gy, TAU, LAM, THETA)
+        want_u, want_p = _inline_iteration(want_u, want_p, rho_c, gx, gy)
+        assert torch.equal(u, want_u) and torch.equal(p, want_p)
+    got = flow.tvl1_iterate(want_u, want_p, rho_c, gx, gy, tau=TAU, lam=LAM, theta=THETA)
+    want = flow.tvl1_iterate_plain(want_u, want_p, rho_c, gx, gy, tau=TAU, lam=LAM,
+                                   theta=THETA)
+    assert all(map(torch.equal, got, want))
+
+
+def test_tvl1_iterate_opcheck_and_fake():
+    """The op's schema, fake and CPU dispatch pass `torch.library.opcheck`;
+    under FakeTensorMode it gives u's and p's shapes in float32."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    args = _iterate_inputs(3, 2, 9, 14)
+    torch.library.opcheck(torch.ops.stabnet.tvl1_iterate.default,
+                          args + (TAU, LAM, THETA))
+    with FakeTensorMode() as mode:
+        fake = [mode.from_tensor(a) for a in args]
+        u, p = torch.ops.stabnet.tvl1_iterate(*fake, TAU, LAM, THETA)
+    assert (tuple(u.shape), tuple(p.shape)) == ((2, 2, 9, 14), (2, 2, 2, 9, 14))
+    assert u.dtype == p.dtype == torch.float32
+
+
+@pytest.mark.parametrize("fault", ["dtype", "strides", "shape"])
+def test_tvl1_iterate_refuses(fault):
+    """What the kernel does not take is refused on every device: float64,
+    a non-contiguous tensor, or p of another size than u."""
+    u, p, rho_c, gx, gy = _iterate_inputs(4, 2, 8, 16)
+    if fault == "dtype":
+        gx = gx.double()
+    elif fault == "strides":
+        u = u.transpose(2, 3).contiguous().transpose(2, 3)
+    else:
+        p = p[..., :8, :15].contiguous()
+    with pytest.raises(ValueError, match="tvl1_iterate"):
+        flow.tvl1_iterate(u, p, rho_c, gx, gy, tau=TAU, lam=LAM, theta=THETA)
+
+
+@pytest.mark.parametrize("shape,fine_iters,want", [
+    ((32, 144, 256), 100, [(144, 256), (72, 128), (32, 64), (16, 32)]),
+    ((10, 288, 512), 40, [(288, 512), (144, 256), (72, 128), (32, 64)]),
+])
+def test_tvl1_schedule_is_the_pyramid_the_flow_runs(monkeypatch, shape, fine_iters, want):
+    """`tvl1_schedule` gives the shapes and iterations `tvl1_flow_eager`
+    runs its levels at (the levels stubbed: only the pyramid is built)."""
+    ran = []
+
+    def level(i0, i1, u, *, num_warps, num_iters, **kw):
+        ran.append((tuple(i0.shape), num_warps, num_iters))
+        return torch.zeros((i0.shape[0], 2) + tuple(i0.shape[1:]))
+
+    monkeypatch.setattr(flow, "_tvl1_level", level)
+    B = shape[0]
+    a = torch.rand(shape)
+    flow.tvl1_flow_eager(a, a, fine_iters=fine_iters)
+    sched = flow.tvl1_schedule(*shape, fine_iters=fine_iters)
+    assert [lv.shape for lv in sched] == [(B,) + hw for hw in want]
+    assert [(lv.shape, lv.warps, lv.iters) for lv in sched] == ran[::-1]
+    assert [lv.iters for lv in sched] == [fine_iters, 100, 100, 100]
+
+
+def test_score_pairs_counts_the_flow_iterations():
+    """On a tiny clip scored on the CPU under the profiler, each
+    `score.pairs` span's `tvl1_launches` and `tvl1_px` are its chunks'
+    iterations and pixel updates as the schedule gives them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from stabnet_tpu_torch.eval.metrics import _EVAL_CHUNK, _FINE_ITERS, score_stabilized_clip
+    from stabnet_tpu_torch.utils.profiling import TRACER
+
+    rng = np.random.RandomState(5)
+    frames = (rng.rand(3, 24, 32, 3) * 255).astype(np.uint8)
+    gray = rng.rand(3, 24, 32).astype(np.float32)
+    t0 = time.time_ns()
+    with profile(activities=[ProfilerActivity.CPU]):
+        score_stabilized_clip(frames, gray, (24, 32), device="cpu")
+    pairs = [s for s in TRACER.spans(t0, time.time_ns()) if s.name == "score.pairs"]
+    sched = flow.tvl1_schedule(_EVAL_CHUNK, 24, 32, fine_iters=_FINE_ITERS)
+    launches = sum(lv.warps * lv.iters for lv in sched)
+    px = sum(lv.warps * lv.iters * lv.shape[0] * lv.shape[1] * lv.shape[2] for lv in sched)
+    assert len(pairs) == 3            # output and input stability, cross-video
+    for s in pairs:
+        assert s.counters["tvl1_launches"] == launches == 5 * (100 * 3 + 100)
+        assert s.counters["tvl1_px"] == px

@@ -1,4 +1,6 @@
-"""The port's warp kernels (stabnet_tpu_torch/ops/cuda_warp.py).
+"""The port's warp kernels (stabnet_tpu_torch/ops/cuda_warp.py) and, on the
+card, the TV-L1 iteration K7 (ops/flow.py; its CPU tests are in
+tests/test_torch_flow.py).
 
 On the CPU the wrappers run their plain versions; those are held here to the
 JAX package's Pallas kernels in interpret mode (exact=True), as
@@ -547,3 +549,31 @@ def test_custom_ops_match_plain_on_the_card():
         got = getattr(torch.ops.stabnet, name)(*args)
         assert kernel.launches == before + 1, name
         assert _equal(got, PLAIN[name](*args)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 16, 32), (3, 40, 24), (1, 17, 33), (32, 144, 256)])
+def test_tvl1_iterate_matches_plain_on_the_card(shape):
+    """K7 (ops/flow.py `tvl1_iterate`), three chained iterations: one launch
+    each, bit for bit its plain version on the card and on the CPU; its
+    inputs untouched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from stabnet_tpu_torch.ops import flow
+
+    rng = np.random.RandomState(9)
+    B, H, W = shape
+    cpu = [torch.from_numpy((rng.randn(*s) * k).astype(np.float32))
+           for s, k in (((B, 2, H, W), 2.0), ((B, 2, 2, H, W), 0.5), ((B, H, W), 20.0),
+                        ((B, H, W), 10.0), ((B, H, W), 10.0))]
+    card = [t.cuda() for t in cpu]
+    kw = dict(tau=0.25, lam=0.15, theta=0.3)
+    got, plain, want = card[:2], card[:2], cpu[:2]
+    for _ in range(3):
+        before = flow.tvl1_iterate.launches
+        got = flow.tvl1_iterate(*got, *card[2:], **kw)
+        assert flow.tvl1_iterate.launches == before + 1
+        plain = flow.tvl1_iterate_plain(*plain, *card[2:], **kw)
+        want = flow.tvl1_iterate_plain(*want, *cpu[2:], **kw)
+        assert _equal(got, plain) and _equal(tuple(t.cpu() for t in got), want)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu))
