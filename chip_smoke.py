@@ -74,17 +74,25 @@ nonzero exit):
      3) down to (32, 16, 32, 3), on clipped flow maps, and its times;
      tvl1_flow at (10, 288, 512), fine_iters 40 (the metrics' flow runs
      inside the metrics chunk's graphs, phase 12): the captured graph
-     torch.equal the eager flow, its launches per replay (20 of K2, 1700
-     of K7), ms per call both ways,
+     torch.equal the eager flow, its launches per replay (20 of K2; K7 700
+     one an iteration at (10, 288, 512) and (10, 144, 256), 10 on chip, one
+     a warp at (10, 72, 128) and (10, 32, 64)), ms per call both ways,
      capture seconds and pool bytes, device operations and host launches
      per call both ways; card against CPU at (2, 96, 128), bit for bit; a
      translation recovered on the card; K7 (the fused primal-dual
      iteration): the eager flow with K7 against the same flow with each
      iteration as the plain tensor operations on the card, bit for bit,
      at the scoring chunk (32, 144, 256), fine_iters 100, and the training
-     shape (10, 288, 512), fine_iters 40; K7's device time per iteration
-     at each level of both pyramids beside the plain operations' and the
-     bound;
+     shape (10, 288, 512), fine_iters 40, each with its launches one an
+     iteration and on chip as `tvl1_schedule` gives them; K7's device time
+     per iteration at each level of both pyramids beside the plain
+     operations' and the bound; K7 on chip (`tvl1_iterate_n`) against 100
+     chained launches of K7 bit for bit at every shape the rule takes it,
+     (32, 72, 128), (32, 32, 64), (32, 16, 32), (10, 72, 128), (10, 32,
+     64), a ragged (3, 70, 100) in three blocks, (1, 37, 45) and (1, 72,
+     128), and its us an iteration beside K7's, K7's 60 B streaming bound
+     and its own (60 B a pixel once a launch of 100 iterations, or 48
+     float operations a pixel and iteration at 67 TFLOP/s: compute);
  12. quality metrics: the S=1 driver keeping its input grays on the
      40-frame 720p clip, then score_stabilized_clip at 144x256 (launches,
      seconds per clip with the metrics chunk's three graphs captured,
@@ -93,7 +101,8 @@ nonzero exit):
      with the eager chunks, every score equal; each chunk key's graph
      (output stability: prealign and a rect; input stability: prealign;
      cross-video: a rect) torch.equal the eager chunk on the scoring's own
-     first chunk of that key, 20 K2 and 2000 K7 launches per replay, device operations,
+     first chunk of that key, 20 K2 and 515 K7 launches per replay (500
+     one an iteration, 15 on chip), device operations,
      host launches and ms per chunk both ways, capture seconds and pool
      bytes; evaluate_clip card against
      CPU on the driver's first 12 frames at 144x256, and where the devices
@@ -195,8 +204,9 @@ nonzero exit):
      scored clip): exit 0 or 1 as its report says (a pass is not required
      at that schedule), every check of the JAX gate present, and the
      launches: per training step K2 2, K4 1, K6b 1; per served frame K1 and
-     K2m once; per scored clip 20 K2 and 2000 K7 per tvl1_flow call and
-     nothing else;
+     K2m once; per scored clip 20 K2 per tvl1_flow call and K7 as
+     `tvl1_schedule` gives at the gate's evaluation scale (48x64: every
+     level on chip, 20 a call), nothing else;
      its seconds of training;
  23. endurance: scripts/torch_endurance.py at v2_93 (target 4, segments of
      2 in fresh processes, the second through --restore, 10 examples, one
@@ -809,7 +819,7 @@ def phase_path(clips: np.ndarray, dev):
 
     expected = {"bilinear_sample": 0, "warp_mesh": refine * (T - 1),
                 "warp_uint8_cf_lowres": T - 1, "warp_uint8_cf": 0, "bilinear_splat": 0,
-                "sample_map_grad": 0, "tvl1_iterate": 0}
+                "sample_map_grad": 0, "tvl1_iterate": 0, "tvl1_iterate_n": 0}
     cuda_warp.reset_launch_counts()
     res = driver.stabilize_clip(clips[0])
     torch.cuda.synchronize()
@@ -1201,7 +1211,7 @@ def phase_train_path(tmp: str):
         n = steps - done
         expected = {"bilinear_sample": 2 * n, "warp_mesh": 0, "warp_uint8_cf_lowres": 0,
                     "warp_uint8_cf": 0, "bilinear_splat": n, "sample_map_grad": n,
-                    "tvl1_iterate": 0}
+                    "tvl1_iterate": 0, "tvl1_iterate_n": 0}
         cuda_warp.reset_launch_counts()
         t0 = time.perf_counter()
         with IterTimes() as walls:
@@ -1416,7 +1426,8 @@ def train_graph_run(dev, eager_spread: bool = True):
     stats = [{k: v for k, v in st.items() if k not in ("key", "shapes")}
              for st in state.graphs.stats()]
     want = {"bilinear_sample": 12, "warp_mesh": 0, "warp_uint8_cf_lowres": 0,
-            "warp_uint8_cf": 0, "bilinear_splat": 6, "sample_map_grad": 6, "tvl1_iterate": 0}
+            "warp_uint8_cf": 0, "bilinear_splat": 6, "sample_map_grad": 6, "tvl1_iterate": 0,
+            "tvl1_iterate_n": 0}
     counters = (state.step, int(state.step_t), state.opt.count, int(state.opt.count_t))
     problems = []
     if not ok:
@@ -1674,11 +1685,23 @@ def phase_train_times(card: str, gen: torch.Generator, dev, data: str):
 FLOW_SHAPES = ((10, 288, 512), (10, 144, 256), (10, 72, 128), (10, 32, 64))
 # The same in the metrics' calls: 32 pairs at the evaluation scale, 144x256.
 METRICS_FLOW_SHAPES = ((32, 144, 256), (32, 72, 128), (32, 32, 64), (32, 16, 32))
-# K7 launches (primal-dual iterations) per tvl1_flow call: 5 warps a level,
-# 100 iterations a warp at the coarse levels and fine_iters at the finest,
-# 40 on a training batch, 100 in a metrics chunk.
-FLOW_ITERATIONS = 5 * (3 * 100 + 40)
-CHUNK_ITERATIONS = 5 * (3 * 100 + 100)
+# K7 launches per tvl1_flow call, 5 warps a level: one an iteration (100 a
+# warp, fine_iters at the finest level, 40 on a training batch and 100 in a
+# metrics chunk) where a level stays off chip, one a warp where it goes on
+# chip (`tvl1_schedule`): on a training batch (10, 288, 512) and (10, 144,
+# 256) stay, in a metrics chunk (32, 144, 256).
+FLOW_K7 = {"tvl1_iterate": 5 * (40 + 100), "tvl1_iterate_n": 5 * 2}
+CHUNK_K7 = {"tvl1_iterate": 5 * 100, "tvl1_iterate_n": 5 * 3}
+# The shapes the rule puts on chip, and a ragged one in three blocks and
+# two of single images, at which K7 on chip is held to chained K7 launches.
+ONCHIP_SHAPES = ((32, 72, 128), (32, 32, 64), (32, 16, 32), (10, 72, 128), (10, 32, 64),
+                 (3, 70, 100), (1, 37, 45), (1, 72, 128))
+# K7's float operations a pixel and iteration (a quotient or square root
+# counted as one): the primal step 4 for rho and 8 a component, the dual
+# step 14 a component.  Six of them are quotients and two square roots,
+# instruction sequences, so the instruction rate, not this count, bounds K7
+# on chip.
+K7_FLOPS_PX = 4 + 2 * 8 + 2 * 14
 
 
 def flow_sample_maps(B: int, H: int, W: int, gen: torch.Generator, device,
@@ -1805,8 +1828,7 @@ def phase_flow(card: str, gen: torch.Generator, dev, clips: np.ndarray):
     u = tvl1_flow(a, b)
     torch.cuda.synchronize()
     per_call = launch_counts()
-    expected = {k: 0 for k in per_call} | {"bilinear_sample": 20,
-                                           "tvl1_iterate": FLOW_ITERATIONS}
+    expected = {k: 0 for k in per_call} | {"bilinear_sample": 20} | FLOW_K7
     check(per_call == expected, f"tvl1_flow launches per replay {per_call}, "
                                 f"expected {expected}")
     check(tuple(u.shape) == tuple(a.shape) + (2,) and bool(torch.isfinite(u).all()),
@@ -1827,7 +1849,7 @@ def phase_flow(card: str, gen: torch.Generator, dev, clips: np.ndarray):
     g_ms, e_ms = float(np.median(walls["graph"])), walls["eager"][0]
     print(f"[11 flow training] {card} | tvl1_flow {tuple(a.shape)} fine_iters 40: the "
           f"captured graph torch.equal the eager flow; launches per replay K2 20, K7 "
-          f"{FLOW_ITERATIONS}; graph "
+          f"{FLOW_K7}; graph "
           f"{[round(w, 3) for w in walls['graph']]} ms per call, eager {e_ms:.3f} ms "
           f"({e_ms / g_ms:.2f}x); capture and instantiation {cap['capture_s']:.3f} s "
           f"after an eager first call of {cap['warmup_s']:.3f} s, pool "
@@ -1861,47 +1883,71 @@ def phase_flow(card: str, gen: torch.Generator, dev, clips: np.ndarray):
 
 def phase_flow_k7(card: str, dev, gen: torch.Generator, flows):
     """K7 against the plain arithmetic on the card: each (i0, i1,
-    fine_iters) of `flows` through the whole eager flow with K7, and with
-    each iteration as `tvl1_iterate_plain`'s tensor operations, bit for bit;
-    then a K7 iteration's device time at each level of both pyramids (20
-    chained iterations in a graph) against the plain operations' (also in a
-    graph), and its bound (60 B a pixel over 3.35 TB/s).  Returns K7's
-    numbers at the scoring chunk's finest level for the kernels line."""
+    fine_iters) of `flows` through the whole eager flow with K7, its
+    launches those `tvl1_schedule` gives (one an iteration off chip, one a
+    warp on chip), and with each iteration as `tvl1_iterate_plain`'s tensor
+    operations, bit for bit; then a K7 iteration's device time at each level
+    of both pyramids (20 chained iterations in a graph) against the plain
+    operations' (also in a graph), and its bound (60 B a pixel over 3.35
+    TB/s); then K7 on chip (`tvl1_iterate_n`) against 100 chained K7
+    launches at ONCHIP_SHAPES, bit for bit, and its time an iteration (a
+    launch of 100 in a graph) beside K7's and its own bound (the 60 B a
+    pixel once a launch, or K7_FLOPS_PX over 67 TFLOP/s, whichever is
+    longer).  Returns K7's numbers at the scoring chunk's
+    finest level and on chip at (32, 72, 128) for the kernels line."""
+    from stabnet_tpu_torch.ops import cuda_warp
     from stabnet_tpu_torch.ops import flow as flow_ops
 
-    bw, _ = peaks(torch.cuda.get_device_name(0))
+    bw, flops = peaks(torch.cuda.get_device_name(0))
     same = []
     for i0, i1, fine in flows:
+        levels = flow_ops.tvl1_schedule(*i0.shape, fine_iters=fine)
+        want = {"tvl1_iterate": sum(lv.launches for lv in levels if not lv.onchip),
+                "tvl1_iterate_n": sum(lv.launches for lv in levels if lv.onchip)}
+        cuda_warp.reset_launch_counts()
         fused = flow_ops.tvl1_flow_eager(i0, i1, fine_iters=fine)
-        kernel = flow_ops.tvl1_iterate
+        torch.cuda.synchronize()
+        got = {k: v for k, v in launch_counts().items() if k in want}
+        check(got == want and want == (FLOW_K7 if fine == 40 else CHUNK_K7),
+              f"K7: the eager flow at {tuple(i0.shape)} launched {got}, the schedule "
+              f"gives {want}")
+        kernels = flow_ops.tvl1_iterate, flow_ops.tvl1_iterate_n
         flow_ops.tvl1_iterate = flow_ops.tvl1_iterate_plain
+        flow_ops.tvl1_iterate_n = flow_ops.tvl1_iterate_n_plain
         try:
             plain = flow_ops.tvl1_flow_eager(i0, i1, fine_iters=fine)
         finally:
-            flow_ops.tvl1_iterate = kernel
+            flow_ops.tvl1_iterate, flow_ops.tvl1_iterate_n = kernels
         torch.cuda.synchronize()
         err = float((fused - plain).abs().max())
         check(torch.equal(fused, plain), f"K7: the flow at {tuple(i0.shape)} fine_iters "
                                          f"{fine} differs from the plain arithmetic: max abs {err}")
-        same.append(f"{tuple(i0.shape)} fine_iters {fine}")
+        same.append(f"{tuple(i0.shape)} fine_iters {fine} (launches {got})")
     kw = dict(tau=0.25, lam=0.15, theta=0.3)
-    levels, rows = {}, []
-    for B, H, W in METRICS_FLOW_SHAPES + FLOW_SHAPES:
+
+    def iterate_inputs(B, H, W):
         u = torch.randn((B, 2, H, W), generator=gen).to(dev)
         p = (0.5 * torch.randn((B, 2, 2, H, W), generator=gen)).to(dev)
         rho_c, gx, gy = ((s * torch.randn((B, H, W), generator=gen)).to(dev)
                          for s in (20.0, 10.0, 10.0))
+        return u, p, rho_c, gx, gy
 
+    def k7_ms(u, p, rho_c, gx, gy):
         def fused_chain(n=20):
             uu, pp = u, p
             for _ in range(n):
                 uu, pp = flow_ops.tvl1_iterate(uu, pp, rho_c, gx, gy, **kw)
+        return device_ms(fused_chain, calls=1, warmup=2, reps=20) / 20
+
+    levels, rows = {}, []
+    for B, H, W in METRICS_FLOW_SHAPES + FLOW_SHAPES:
+        u, p, rho_c, gx, gy = iterate_inputs(B, H, W)
 
         def plain_step():
             flow_ops.tvl1_iterate_plain(u, p, rho_c, gx, gy, **kw)
 
         bound = 60 * B * H * W / bw * 1e3
-        ms = device_ms(fused_chain, calls=1, warmup=2, reps=20) / 20
+        ms = k7_ms(u, p, rho_c, gx, gy)
         plain_ms = device_ms(plain_step, calls=4, reps=5)
         levels[(B, H, W)] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound}
         rows.append(f"{(B, H, W)} {ms * 1e3:.2f} us (plain {plain_ms * 1e3:.1f}, bound "
@@ -1910,8 +1956,45 @@ def phase_flow_k7(card: str, dev, gen: torch.Generator, flows):
           f"arithmetic on the card bit for bit at {'; '.join(same)}; device time per "
           f"iteration (20 chained in a graph; the plain operations in a graph): "
           + "; ".join(rows))
+
+    onchip, rows = {}, []
+    for B, H, W in ONCHIP_SHAPES:
+        check(flow_ops.onchip_rows(H, W) > 0, f"K7 on chip: the rule refuses {(B, H, W)}")
+        u, p, rho_c, gx, gy = iterate_inputs(B, H, W)
+        before = flow_ops.tvl1_iterate_n.launches
+        got = flow_ops.tvl1_iterate_n(u, p, rho_c, gx, gy, 100, **kw)
+        launched = flow_ops.tvl1_iterate_n.launches - before
+        want = (u, p)
+        for _ in range(100):
+            want = flow_ops.tvl1_iterate(*want, rho_c, gx, gy, **kw)
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        check(launched == 1 and all(map(torch.equal, got, want)),
+              f"K7 on chip at {(B, H, W)}: {launched} launches, max abs {err} against 100 "
+              f"chained K7 launches")
+        ms = device_ms(lambda: flow_ops.tvl1_iterate_n(u, p, rho_c, gx, gy, 100, **kw),
+                       calls=2, warmup=2, reps=10) / 100
+        k7 = levels.get((B, H, W), {}).get("ms") or k7_ms(u, p, rho_c, gx, gy)
+        stream = 60 * B * H * W / bw * 1e3
+        # One launch moves a pixel's 60 B once for its 100 iterations; each
+        # iteration does K7_FLOPS_PX float operations a pixel.
+        bytes_ms = stream / 100
+        flops_ms = K7_FLOPS_PX * B * H * W / flops * 1e3
+        rows_ = flow_ops.onchip_rows(H, W)
+        onchip[(B, H, W)] = {"ms": ms, "plain_ms": levels.get((B, H, W), {}).get("plain_ms"),
+                             "bound_ms": max(bytes_ms, flops_ms),
+                             "bound_by": "compute" if flops_ms >= bytes_ms else "bytes"}
+        rows.append(f"{(B, H, W)} in {-(-H // rows_)} block(s) of {rows_} rows: "
+                    f"{ms * 1e3:.2f} us (K7 {k7 * 1e3:.2f}, K7's streaming bound "
+                    f"{stream * 1e3:.2f}; bound on chip: bytes {bytes_ms * 1e3:.3f}, "
+                    f"compute {flops_ms * 1e3:.3f})")
+    print(f"[11 K7 on chip] {card} | tvl1_iterate_n, 100 iterations a launch: bit for bit "
+          f"100 chained K7 launches at every shape; device time per iteration: "
+          + "; ".join(rows))
     fine = levels[METRICS_FLOW_SHAPES[0]]
-    return {**fine, "bound_by": "bytes", "library_ms": None, "call_ms": None}
+    coarse = onchip[METRICS_FLOW_SHAPES[1]]
+    return ({**fine, "bound_by": "bytes", "library_ms": None, "call_ms": None},
+            {**coarse, "library_ms": None, "call_ms": None})
 
 
 def phase_metrics(card: str, dev, engine, clips: np.ndarray):
@@ -1934,7 +2017,7 @@ def phase_metrics(card: str, dev, engine, clips: np.ndarray):
     flows = 2 * chunks(T - 1) + chunks(T)   # output and input stability, cross-video
     expected = {"bilinear_sample": 20 * flows, "warp_mesh": T - 1,
                 "warp_uint8_cf_lowres": T - 1, "warp_uint8_cf": 0, "bilinear_splat": 0,
-                "sample_map_grad": 0, "tvl1_iterate": CHUNK_ITERATIONS * flows}
+                "sample_map_grad": 0} | {k: n * flows for k, n in CHUNK_K7.items()}
     cuda_warp.reset_launch_counts()
     t0 = time.perf_counter()
     res = driver.stabilize_clip(clips[0])
@@ -2092,7 +2175,7 @@ def metrics_graphs(card: str, dev, cfg, res, scores: dict) -> None:
         graph_ms = (time.perf_counter() - t0) * 1e3
         per_call = launch_counts()
         check(torch.equal(got, want), f"metrics chunk, {what}: the graph differs from eager")
-        check(per_call == zero | {"bilinear_sample": 20, "tvl1_iterate": CHUNK_ITERATIONS},
+        check(per_call == zero | {"bilinear_sample": 20} | CHUNK_K7,
               f"metrics chunk, {what}: launches per replay {per_call}")
         ops, ms, host = device_ops(lambda: _pairs_h_chunk(a, b, r, prealign=key[0]))
         note = (f"{what}: {graph_ms:.3f} ms per chunk as a graph against {eager_ms:.3f} "
@@ -2110,7 +2193,7 @@ def metrics_graphs(card: str, dev, cfg, res, scores: dict) -> None:
     print(f"[12 metrics graphs] {card} | the clip scored again through the chunks' graphs "
           f"{split(graph_split)} and with the eager chunks {split(eager_split)}, every score "
           f"equal; each key's graph torch.equal the eager chunk on the eager scoring's first "
-          f"chunk of that key, 20 K2 and {CHUNK_ITERATIONS} K7 per replay: " + "; ".join(notes)
+          f"chunk of that key, 20 K2 and K7 {CHUNK_K7} per replay: " + "; ".join(notes)
           + ". Graphs (prealign, rect given): " + "; ".join(graphs))
 
 
@@ -2182,14 +2265,14 @@ def phase_flow_train(card: str, tmp: str, data: str, flowless_iter_ms: float):
     launches = launch_counts()
     # Each step launches K2 twice (the K5 and K6 forwards), each batch the
     # pipeline made (the steps', and up to 3 more it had in hand or queued
-    # when it was closed) 20 times in its flow, and K7 once per iteration.
+    # when it was closed) 20 times in its flow, and K7 as FLOW_K7 says.
     n = FLOW_STEPS
     batches = (launches["bilinear_sample"] - 2 * n) / 20
     rest = {k: v for k, v in launches.items() if k != "bilinear_sample"}
     check(batches == int(batches) and n <= batches <= n + 3
           and rest == {"warp_mesh": 0, "warp_uint8_cf_lowres": 0, "warp_uint8_cf": 0,
-                       "bilinear_splat": n, "sample_map_grad": n,
-                       "tvl1_iterate": FLOW_ITERATIONS * int(batches)},
+                       "bilinear_splat": n, "sample_map_grad": n}
+          | {k: v * int(batches) for k, v in FLOW_K7.items()},
           f"train --compute-flow launches {launches}")
     with open(os.path.join(log_dir, "metrics.jsonl")) as f:
         rows = [r for r in map(json.loads, f) if r["tag"] == "train"]
@@ -2204,7 +2287,7 @@ def phase_flow_train(card: str, tmp: str, data: str, flowless_iter_ms: float):
     iter_ms = float(np.mean(walls.ms(skip=3)))
     print(f"[13 flow train] {card} | train --compute-flow, v2_93 bf16 batch 10, {n} steps "
           f"through the CLI, training {seconds:.1f} s (refused without --compute-flow): "
-          f"launches {launches} (K2: 2 per step + 20 per tvl1_flow, K7 {FLOW_ITERATIONS} "
+          f"launches {launches} (K2: 2 per step + 20 per tvl1_flow, K7 {FLOW_K7} "
           f"per tvl1_flow, {int(batches)} batches "
           f"made); temporal loss live (step 0 temp {rows[0]['temp']:.6g}, total "
           f"{rows[0]['total']:.6g}); {iter_ms:.3f} ms per iteration, the mean of the "
@@ -3129,7 +3212,7 @@ def phase_sharded(card: str, dev, engine, clips: np.ndarray):
 # The doctor's names of the kernels, by their wrappers' names.
 DOCTOR_NAMES = {"warp_uint8_cf_lowres": "K1", "bilinear_sample": "K2", "warp_mesh": "K2m",
                 "warp_uint8_cf": "K3", "bilinear_splat": "K4", "sample_map_grad": "K6b",
-                "tvl1_iterate": "K7"}
+                "tvl1_iterate": "K7", "tvl1_iterate_n": "K7n"}
 
 
 def run_doctor_cli(*argv, env=None, timeout: float = 300):
@@ -3240,7 +3323,7 @@ def phase_debug_vis(card: str, tmp: str, data: str):
             "--model-dir", os.path.join(out, "models"), "--log-dir", os.path.join(out, "log"),
             *extra])
         runs[name] = (launches, wall, err, out)
-    per_step = {k: 0 for k in DOCTOR_NAMES} | {
+    per_step = {k: 0 for k in launch_counts()} | {
         "bilinear_sample": 2 * steps, "bilinear_splat": steps, "sample_map_grad": steps}
     check(runs["plain"][0] == per_step, f"train without --debug-vis: {runs['plain'][0]}")
     want = per_step | {"warp_mesh": dumps}
@@ -3368,21 +3451,27 @@ GATE = "_gate"   # argv[1] of the quality gate's process that phase 22 starts
 GATE_ARGS = ["--steps", "100", "--clips", "2", "--frames", "40"]
 
 
-def gate_process(argv) -> int:
-    """Phase 22's process: scripts/torch_quality_gate.py's `main` with
-    `argv`, the launches of its training, of each batch it serves and of
-    each clip it scores counted around those calls, printed as a JSON line
-    on stderr after the report."""
+def gate_module():
+    """scripts/torch_quality_gate.py as a module."""
     import importlib.util
-
-    import stabnet_tpu_torch.eval as evaluation
-    from stabnet_tpu_torch.stream import StreamDriver
 
     here = os.path.dirname(os.path.abspath(__file__))
     spec = importlib.util.spec_from_file_location(
         "torch_quality_gate", os.path.join(here, "scripts", "torch_quality_gate.py"))
     gate = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(gate)
+    return gate
+
+
+def gate_process(argv) -> int:
+    """Phase 22's process: scripts/torch_quality_gate.py's `main` with
+    `argv`, the launches of its training, of each batch it serves and of
+    each clip it scores counted around those calls, printed as a JSON line
+    on stderr after the report."""
+    import stabnet_tpu_torch.eval as evaluation
+    from stabnet_tpu_torch.stream import StreamDriver
+
+    gate = gate_module()
     record = {}
 
     def counted(name, fn):
@@ -3408,7 +3497,8 @@ def phase_quality_gate(card: str, tmp: str):
     steps), every check of the JAX gate present, and the launches: per
     training step K2 2, K4 1 and K6b 1; per served frame K2m and K1 once
     (each of the two batches: trained and random weights); per scored clip
-    20 K2 and 2000 K7 in each tvl1_flow call, nothing else.  Returns the whole run's
+    20 K2 in each tvl1_flow call and K7 as the schedule gives at the gate's
+    evaluation scale, nothing else.  Returns the whole run's
     launches."""
     here = os.path.dirname(os.path.abspath(__file__))
     cmd = [sys.executable, os.path.abspath(__file__), GATE, *GATE_ARGS,
@@ -3429,14 +3519,24 @@ def phase_quality_gate(card: str, tmp: str):
                          if ln.startswith("GATE_LAUNCHES ")][-1][len("GATE_LAUNCHES "):])
     steps, clips, T = (int(GATE_ARGS[i]) for i in (1, 3, 5))
     zero = {k: 0 for k in launch_counts()}
+    # K7's launches a tvl1_flow call at the gate's evaluation scale.
+    from stabnet_tpu_torch.eval.metrics import _EVAL_CHUNK, _FINE_ITERS, _eval_downscale
+    from stabnet_tpu_torch.ops.flow import tvl1_schedule
+
+    gate = gate_module()
+    gate_cfg = gate.build_config(gate.parser().parse_args([*GATE_ARGS, "--workdir", tmp]))
+    ds = _eval_downscale(gate_cfg.height, gate_cfg.width)
+    levels = tvl1_schedule(_EVAL_CHUNK, gate_cfg.height // ds, gate_cfg.width // ds,
+                           fine_iters=_FINE_ITERS)
+    k7 = {"tvl1_iterate": sum(lv.launches for lv in levels if not lv.onchip),
+          "tvl1_iterate_n": sum(lv.launches for lv in levels if lv.onchip)}
     want = {"train": [zero | {"bilinear_sample": 2 * steps, "bilinear_splat": steps,
                               "sample_map_grad": steps}],
             "serve": [zero | {"warp_mesh": T - 1, "warp_uint8_cf_lowres": T - 1}] * 2,
             # tvl1_flow calls per clip: the output's and the input's
             # inter-frame pairs and the input-to-output pairs, 32 per call.
             "score": [zero | {k: n * (2 * -(-(T - 1) // 32) + -(-T // 32))
-                              for k, n in (("bilinear_sample", 20),
-                                           ("tvl1_iterate", CHUNK_ITERATIONS))}]
+                              for k, n in ({"bilinear_sample": 20} | k7).items()}]
             * (2 * clips)}
     check(record == want, f"quality gate launches {record}, expected {want}")
     seconds = [ln for ln in proc.stderr.splitlines() if ln.startswith("quality gate on")]
@@ -3555,10 +3655,12 @@ def main() -> int:
     timed(5, phase_card_vs_cpu, clips, dev)
     kernels, timed_ms = timed(6, phase_times, card, gen, dev, engine, driver, clips, grays,
                               launches, errs)
-    flow_err, flow_timed, flow_launches, k7_timed = timed(11, phase_flow, card, gen, dev, clips)
+    flow_err, flow_timed, flow_launches, (k7_timed, k7n_timed) = timed(
+        11, phase_flow, card, gen, dev, clips)
     errs["bilinear_sample"] = max(errs["bilinear_sample"], flow_err)
     timed_ms[("bilinear_sample", "(10, 288, 512, 3) edge-inclusive")] = flow_timed
     timed_ms[("tvl1_iterate", "(32, 144, 256)")] = k7_timed
+    timed_ms[("tvl1_iterate_n", "(32, 72, 128)")] = k7n_timed
     timed(12, phase_metrics, card, dev, engine, clips)
     batch_launches = timed(14, phase_serving_modes, card, dev, engine, clips, eager1)
     export_launches, export_batch_launches = timed(16, phase_export, card, dev, engine, clips)
@@ -3605,6 +3707,9 @@ def main() -> int:
     kernels.append(kernel_row("tvl1_iterate", "none: XLA's fusion of the loop body of "
                               "stabnet_tpu/ops/flow.py _tvl1_level", flow_launches["tvl1_iterate"],
                               0.0, timed_ms, "(32, 144, 256)", source="tvl1.cu"))
+    kernels.append(kernel_row("tvl1_iterate_n", "none: a warp of K7 iterations on chip",
+                              flow_launches["tvl1_iterate_n"], 0.0, timed_ms, "(32, 72, 128)",
+                              source="tvl1.cu"))
     for row in kernels:
         row["launches_serving"] = launches[row["name"]]
         row["launches_train"] = train_launches[row["name"]]

@@ -18,7 +18,8 @@ Checks:
              the CPU's liveness.
   kernels  - build the CUDA kernels (ops/cuda_build.py, seconds recorded),
              call each `torch.ops.stabnet` op once at a small shape on the
-             card (K1, K2 in both edge modes, K2m, K3, K4, K6b, K7) and hold it
+             card (K1, K2 in both edge modes, K2m, K3, K4, K6b, K7, and K7n:
+             K7's three iterations on chip in one launch) and hold it
              against the same op on CPU tensors, its plain version, bit for
              bit; each kernel's launches and max error.  With `--device
              cpu` the plain versions run and the check says so.
@@ -130,6 +131,8 @@ def _kernel_cases(device):
         ("K6b", cuda_warp.sample_map_grad, [(ops.sample_map_grad, (im, x, y, g))]),
         ("K7", flow.tvl1_iterate,
          [(ops.tvl1_iterate, (u, p, rho_c, gx, gy, 0.25, 0.15, 0.3))]),
+        ("K7n", flow.tvl1_iterate_n,
+         [(ops.tvl1_iterate_n, (u, p, rho_c, gx, gy, 3, 0.25, 0.15, 0.3))]),
     ]
 
 

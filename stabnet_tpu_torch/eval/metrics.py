@@ -358,14 +358,14 @@ def _pairs_h(a: torch.Tensor, b: torch.Tensor, rect=None,
             out.append(_pairs_h_chunk(ca, cb, rect, prealign=prealign)[:k])
         if kept is not None:
             # The pairs scored, and the chunks' slots they were padded to;
-            # the flow's primal-dual iterations (K7 launches on the card)
-            # and the pixels they updated, from its schedule.
+            # the flow's K7 launches on the card, the pixels its iterations
+            # updated, and those of the on-chip launches, from its schedule.
             levels = tvl1_schedule(_EVAL_CHUNK, *a.shape[1:], fine_iters=_FINE_ITERS)
-            iters = [lv.warps * lv.iters for lv in levels]
             kept.counters.update(
                 pairs=a.shape[0], slots=len(out) * _EVAL_CHUNK,
-                tvl1_launches=len(out) * sum(iters),
-                tvl1_px=len(out) * sum(n * math.prod(lv.shape) for n, lv in zip(iters, levels)))
+                tvl1_launches=len(out) * sum(lv.launches for lv in levels),
+                tvl1_px=len(out) * sum(lv.px for lv in levels),
+                tvl1_onchip_px=len(out) * sum(lv.px for lv in levels if lv.onchip))
         return torch.cat(out)
 
 

@@ -18,14 +18,19 @@ is one call of `torch.ops.stabnet.tvl1_iterate` (K7, csrc/tvl1.cu): on CUDA
 tensors one launch that reads u, p and the warp's residual and gradient and
 writes the new u and p, on CPU tensors its plain version,
 `tvl1_iterate_plain`, some forty tensor operations in the order the kernel
-repeats.  On the card the whole pyramid runs as one captured CUDA graph
-(`tvl1_flow`; `tvl1_flow_eager` is the same arithmetic issued one operation
-at a time, the CPU path).
+repeats.  At a level whose images fit on chip (`onchip_rows`, recorded in
+`tvl1_schedule`'s levels) a whole warp's iterations are one call of
+`torch.ops.stabnet.tvl1_iterate_n` instead: on CUDA tensors one launch that
+holds each image in a thread-block cluster's shared memory throughout, on
+CPU tensors the plain iteration n times.  On the card the whole pyramid runs
+as one captured CUDA graph (`tvl1_flow`; `tvl1_flow_eager` is the same
+arithmetic launched one operation at a time, the CPU path).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import List, NamedTuple, Tuple
 
 import torch
@@ -146,28 +151,33 @@ def _tvl1_lib() -> ctypes.CDLL:
         lib.stabnet_tvl1_iterate_f32.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
                                                  + [ctypes.c_float] * 4 + [ctypes.c_void_p])
         lib.stabnet_tvl1_iterate_f32.restype = ctypes.c_int
+        lib.stabnet_tvl1_iterate_n_f32.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                                                   + [ctypes.c_float] * 4 + [ctypes.c_void_p])
+        lib.stabnet_tvl1_iterate_n_f32.restype = ctypes.c_int
+        lib.stabnet_tvl1_onchip_init.argtypes = []
+        lib.stabnet_tvl1_onchip_init.restype = ctypes.c_int
         lib._stabnet_typed = True
     return lib
 
 
-def _check_iterate(u, p, rho_c, gx, gy) -> None:
+def _check_iterate(u, p, rho_c, gx, gy, name: str = "tvl1_iterate") -> None:
     """K7 takes float32 contiguous u (B, 2, H, W), p (B, 2, 2, H, W) and
     rho_c, gx, gy (B, H, W) of one shape; checked on every device, so the
     plain version takes exactly what the kernel takes."""
     tensors = (u, p, rho_c, gx, gy)
     cuda_warp._require(all(t.dtype == torch.float32 for t in tensors),
-                       f"tvl1_iterate: tensors must be float32, got "
+                       f"{name}: tensors must be float32, got "
                        f"{[str(t.dtype) for t in tensors]}")
-    cuda_warp._require(rho_c.dim() == 3, f"tvl1_iterate: rho_c must be (B, H, W), got "
+    cuda_warp._require(rho_c.dim() == 3, f"{name}: rho_c must be (B, H, W), got "
                                          f"{tuple(rho_c.shape)}")
     B, H, W = (int(v) for v in rho_c.shape)
     want = ((B, 2, H, W), (B, 2, 2, H, W), (B, H, W), (B, H, W), (B, H, W))
     cuda_warp._require(all(tuple(t.shape) == s for t, s in zip(tensors, want)),
-                       f"tvl1_iterate: shapes {[tuple(t.shape) for t in tensors]}, "
+                       f"{name}: shapes {[tuple(t.shape) for t in tensors]}, "
                        f"expected {list(want)}")
     cuda_warp._require(all(t.is_contiguous() for t in tensors),
-                       "tvl1_iterate: tensors must be contiguous")
-    cuda_warp._check_index_range("tvl1_iterate", (H, W), B, -(-H // 8), 4 * H * W)
+                       f"{name}: tensors must be contiguous")
+    cuda_warp._check_index_range(name, (H, W), B, -(-H // 8), 4 * H * W)
 
 
 @torch.library.custom_op(
@@ -216,14 +226,120 @@ def tvl1_iterate(u: torch.Tensor, p: torch.Tensor, rho_c: torch.Tensor, gx: torc
 
 
 tvl1_iterate.launches = 0
+
+
+# The on-chip kernel (csrc/tvl1.cu `tvl1_iterate_kernel_onchip`) holds an
+# image in a cluster of at most ONCHIP_CLUSTER blocks, each a band of whole
+# rows of at most ONCHIP_BLOCK_PX pixels (1,024 threads of at most 3 pixels;
+# u and p 24 B a pixel in shared memory, the data term in registers).
+# Three blocks an image run a 32-image metrics chunk in one wave of 96
+# clusters; the card does not hold 32 clusters of four at once.
+ONCHIP_CLUSTER = 3
+ONCHIP_BLOCK_PX = 3072
+
+
+def onchip_rows(H: int, W: int) -> int:
+    """The rows of a block's band where the on-chip kernel takes (H, W)
+    images: those of the fewest blocks, at most ONCHIP_CLUSTER, whose bands
+    hold at most ONCHIP_BLOCK_PX pixels each (a cluster's barriers cost
+    more than spreading a small image gains); 0 where none do, and each
+    iteration is a K7 launch.  The one rule: `tvl1_schedule` records it,
+    `tvl1_iterate_n` launches by it."""
+    for blocks in range(1, ONCHIP_CLUSTER + 1):
+        rows = -(-H // blocks)
+        if 0 < rows * W <= ONCHIP_BLOCK_PX:
+            return rows
+    return 0
+
+
+def tvl1_iterate_n_plain(u: torch.Tensor, p: torch.Tensor, rho_c: torch.Tensor,
+                         gx: torch.Tensor, gy: torch.Tensor, n: int, *, tau: float,
+                         lam: float, theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """n iterations of `tvl1_iterate_plain` at one warp: the new (u, p),
+    fresh tensors (copies of the inputs where n is 0)."""
+    if n == 0:
+        return u.clone(), p.clone()
+    for _ in range(n):
+        u, p = tvl1_iterate_plain(u, p, rho_c, gx, gy, tau=tau, lam=lam, theta=theta)
+    return u, p
+
+
+def _check_iterate_n(u, p, rho_c, gx, gy, n: int) -> None:
+    """The on-chip kernel takes what K7 takes, n >= 0 iterations, and
+    images that `onchip_rows` puts on chip; checked on every device."""
+    _check_iterate(u, p, rho_c, gx, gy, name="tvl1_iterate_n")
+    H, W = (int(v) for v in rho_c.shape[1:])
+    cuda_warp._require(0 <= n <= 2 ** 31 - 1, f"tvl1_iterate_n: n must be in [0, 2^31), "
+                                              f"got {n}")
+    cuda_warp._require(onchip_rows(H, W) > 0,
+                       f"tvl1_iterate_n: ({H}, {W}) images do not fit on chip (a band of "
+                       f"{-(-H // ONCHIP_CLUSTER)} rows over {ONCHIP_BLOCK_PX} pixels); "
+                       f"iterate with tvl1_iterate")
+
+
+@torch.library.custom_op(
+    "stabnet::tvl1_iterate_n", mutates_args=(), device_types="cpu",
+    schema="(Tensor u, Tensor p, Tensor rho_c, Tensor gx, Tensor gy, int n, float tau, "
+           "float lam, float theta) -> (Tensor, Tensor)")
+def _tvl1_iterate_n_op(u, p, rho_c, gx, gy, n, tau, lam, theta):
+    return tvl1_iterate_n_plain(u, p, rho_c, gx, gy, n, tau=tau, lam=lam, theta=theta)
+
+
+_onchip_ready = set()   # devices whose on-chip kernel may take its shared memory
+
+
+@_tvl1_iterate_n_op.register_kernel("cuda")
+def _tvl1_iterate_n_cuda(u, p, rho_c, gx, gy, n, tau, lam, theta):
+    cuda_warp._on_card(u, p, rho_c, gx, gy)
+    _check_iterate_n(u, p, rho_c, gx, gy, n)
+    B, H, W = rho_c.shape
+    u_out, p_out = torch.empty_like(u), torch.empty_like(p)
+    with torch.cuda.device(u.device):
+        lib = _tvl1_lib()
+        if u.device.index not in _onchip_ready:
+            cuda_warp._launch_check(lib.stabnet_tvl1_onchip_init(), "tvl1_iterate_n")
+            _onchip_ready.add(u.device.index)
+        stream = torch.cuda.current_stream(u.device).cuda_stream
+        err = lib.stabnet_tvl1_iterate_n_f32(
+            u.data_ptr(), p.data_ptr(), rho_c.data_ptr(), gx.data_ptr(), gy.data_ptr(),
+            u_out.data_ptr(), p_out.data_ptr(), B, H, W, onchip_rows(H, W), n, lam * theta,
+            theta, tau / theta, 1e-9, stream)
+    cuda_warp._launch_check(err, "tvl1_iterate_n")
+    cuda_warp._launched(tvl1_iterate_n)
+    return u_out, p_out
+
+
+@_tvl1_iterate_n_op.register_fake
+def _tvl1_iterate_n_fake(u, p, rho_c, gx, gy, n, tau, lam, theta):
+    _check_iterate_n(u, p, rho_c, gx, gy, n)
+    return torch.empty_like(u), torch.empty_like(p)
+
+
+def tvl1_iterate_n(u: torch.Tensor, p: torch.Tensor, rho_c: torch.Tensor, gx: torch.Tensor,
+                   gy: torch.Tensor, n: int, *, tau: float, lam: float,
+                   theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K7 on chip: `tvl1_iterate_n_plain` as one CUDA launch (plain version
+    on CPU), through `torch.ops.stabnet.tvl1_iterate_n`; fresh (u, p), the
+    inputs untouched, bit for bit n calls of `tvl1_iterate`.  Shapes and
+    types as `_check_iterate_n` says."""
+    cuda_warp._no_grad_inputs("tvl1_iterate_n", u, p, rho_c, gx, gy)
+    _check_iterate_n(u, p, rho_c, gx, gy, n)
+    cuda_warp._on_cpu(u, p, rho_c, gx, gy)
+    return torch.ops.stabnet.tvl1_iterate_n(u, p, rho_c, gx, gy, int(n), float(tau),
+                                            float(lam), float(theta))
+
+
+tvl1_iterate_n.launches = 0
 # Counted and reset with the warp kernels.
-cuda_warp.KERNELS += (tvl1_iterate,)
+cuda_warp.KERNELS += (tvl1_iterate, tvl1_iterate_n)
 
 
 def _tvl1_level(i0: torch.Tensor, i1: torch.Tensor, u: torch.Tensor, *,
                 num_warps: int, num_iters: int, tau: float, lam: float,
-                theta: float) -> torch.Tensor:
-    """Fixed-point TV-L1 at one pyramid level.  i0/i1 (B, H, W), u (B, 2, H, W)."""
+                theta: float, onchip: bool = False) -> torch.Tensor:
+    """Fixed-point TV-L1 at one pyramid level.  i0/i1 (B, H, W), u (B, 2, H, W);
+    `onchip` (`Tvl1Level.onchip`): each warp's iterations as one
+    `tvl1_iterate_n` call, else one `tvl1_iterate` call an iteration."""
     B, H, W = i0.shape
     dev = i0.device
     ys = torch.arange(H, dtype=torch.float32, device=dev)[:, None]
@@ -240,6 +356,10 @@ def _tvl1_level(i0: torch.Tensor, i1: torch.Tensor, u: torch.Tensor, *,
         i1w, gx, gy = w[0], w[1], w[2]
         # rho(u') = I1w + <gradI1w, u' - u0> - I0, linearized at u0.
         rho_c = i1w - gx * u0x - gy * u0y - i0
+        if onchip:
+            u, p = tvl1_iterate_n(u, p, rho_c, gx, gy, num_iters, tau=tau, lam=lam,
+                                  theta=theta)
+            continue
         for _ in range(num_iters):
             u, p = tvl1_iterate(u, p, rho_c, gx, gy, tau=tau, lam=lam, theta=theta)
     return u
@@ -247,11 +367,23 @@ def _tvl1_level(i0: torch.Tensor, i1: torch.Tensor, u: torch.Tensor, *,
 
 class Tvl1Level(NamedTuple):
     """One pyramid level of a `tvl1_flow` call: the frames' shape (B, h, w)
-    there, its warps and the primal-dual iterations of each warp (one K7
-    launch each on the card)."""
+    there, its warps and the primal-dual iterations of each warp, and
+    whether its images go on chip (`onchip_rows`): then a warp's iterations
+    are one launch on the card, else one K7 launch each."""
     shape: Tuple[int, int, int]
     warps: int
     iters: int
+    onchip: bool = False
+
+    @property
+    def launches(self) -> int:
+        """K7's launches at this level on the card."""
+        return self.warps * (1 if self.onchip else self.iters)
+
+    @property
+    def px(self) -> int:
+        """Pixel updates at this level: pixels times iterations."""
+        return self.warps * self.iters * math.prod(self.shape)
 
 
 def tvl1_schedule(B: int, H: int, W: int, num_levels: int = 4, num_warps: int = 5,
@@ -265,7 +397,8 @@ def tvl1_schedule(B: int, H: int, W: int, num_levels: int = 4, num_warps: int = 
     for _ in range(num_levels - 1):
         h, w = shapes[-1]
         shapes.append((max(h // 2 // 8 * 8, 16), max(w // 2 // 8 * 8, 16)))
-    return [Tvl1Level((B, h, w), num_warps, fine_iters if lvl == 0 else num_iters)
+    return [Tvl1Level((B, h, w), num_warps, fine_iters if lvl == 0 else num_iters,
+                      onchip_rows(h, w) > 0)
             for lvl, (h, w) in enumerate(shapes)]
 
 
@@ -320,8 +453,12 @@ def tvl1_flow_eager(i0: torch.Tensor, i1: torch.Tensor, *, num_levels: int = 4,
     Returns:
       (B, H, W, 2) float32 pixel displacement u with i0(p) ~= i1(p + u(p)).
       On CUDA tensors one call launches K2 num_levels * num_warps times and
-      K7 once per primal-dual iteration, num_warps * ((num_levels - 1) *
-      num_iters + fine_iters) times (`tvl1_schedule`).
+      K7 at each level as `tvl1_schedule` says (`Tvl1Level.launches`): once
+      per warp where the level's images go on chip (`tvl1_iterate_n`), else
+      once per primal-dual iteration (`tvl1_iterate`).  A metrics chunk,
+      (32, 144, 256) at 100 iterations everywhere, makes 500 + 3 * 5 = 515
+      launches; a training batch, (10, 288, 512) at fine_iters 40, 200 +
+      500 + 2 * 5 = 710.
       No value goes to the host: the intensity range stays on the device,
       so the whole call can be captured as one graph.
     """
@@ -341,7 +478,8 @@ def tvl1_flow_eager(i0: torch.Tensor, i1: torch.Tensor, *, num_levels: int = 4,
     u = torch.zeros((B, 2) + levels[-1].shape[1:], dtype=torch.float32, device=i0.device)
     for lvl in range(num_levels - 1, -1, -1):
         u = _tvl1_level(pyr0[lvl], pyr1[lvl], u, num_warps=levels[lvl].warps,
-                        num_iters=levels[lvl].iters, tau=tau, lam=lam, theta=theta)
+                        num_iters=levels[lvl].iters, tau=tau, lam=lam, theta=theta,
+                        onchip=levels[lvl].onchip)
         if lvl > 0:
             h, w = levels[lvl - 1].shape[1:]
             hs, ws = levels[lvl].shape[1:]

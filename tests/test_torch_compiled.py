@@ -298,7 +298,7 @@ def test_launches_are_counted_per_replay():
         worker.join(timeout=10)
         assert not worker.is_alive()
     assert record == {cuda_warp.warp_mesh: 2, cuda_warp.warp_uint8_cf_lowres: 1}
-    assert [k.launches for k in cuda_warp.KERNELS] == [1, 0, 0, 0, 0, 0, 0]
+    assert [k.launches for k in cuda_warp.KERNELS] == [1, 0, 0, 0, 0, 0, 0, 0]
     for _ in range(3):
         cuda_warp.add_launches(record)
     assert cuda_warp.warp_mesh.launches == 6
@@ -381,10 +381,21 @@ def test_card_step_output_outlives_the_next_step(card):
 
 
 @pytest.mark.cuda
-def test_card_flow_graph_equals_the_eager_flow(card):
-    grays, _ = _clips()
-    a = torch.from_numpy(grays[:, 1]).to(card)
-    b = torch.from_numpy(grays[:, 2]).to(card)
+@pytest.mark.parametrize("size", [None, (144, 256)])
+def test_card_flow_graph_equals_the_eager_flow(card, size):
+    """The captured flow torch.equal the eager one, its launches per replay
+    those of the schedule: at the clips' size every level on chip, at
+    144x256 the finest level one K7 launch an iteration and the rest on
+    chip, so both kernels run under capture."""
+    if size is None:
+        grays, _ = _clips()
+    else:
+        frames = make_video(3, *size, seed=5, jitter=4.0)
+        grays = (frames.astype(np.float32).mean(-1) / 255.0)[None].repeat(2, 0)
+    a = torch.from_numpy(np.ascontiguousarray(grays[:, 1])).to(card)
+    b = torch.from_numpy(np.ascontiguousarray(grays[:, 2])).to(card)
+    levels = flow_ops.tvl1_schedule(*a.shape, num_iters=10, fine_iters=5)
+    assert [lv.onchip for lv in levels] == [size is None] + [True] * 3
     want = flow_ops.tvl1_flow_eager(a, b, num_iters=10, fine_iters=5)
     for _ in range(3):   # capture (runs eagerly), then replays
         cuda_warp.reset_launch_counts()
@@ -392,4 +403,7 @@ def test_card_flow_graph_equals_the_eager_flow(card):
         torch.cuda.synchronize()
         assert torch.equal(got, want)
         assert cuda_warp.bilinear_sample.launches == 20
-        assert flow_ops.tvl1_iterate.launches == 5 * (3 * 10 + 5)
+        assert flow_ops.tvl1_iterate.launches == sum(lv.launches for lv in levels
+                                                     if not lv.onchip)
+        assert flow_ops.tvl1_iterate_n.launches == sum(lv.launches for lv in levels
+                                                       if lv.onchip)

@@ -354,8 +354,9 @@ def card():
 @pytest.mark.parametrize("prealign,with_rect", KEYS)
 def test_card_chunk_graph_equals_the_eager_chunk(card, prealign, with_rect):
     """Capture, then two replays on other frames and rects: torch.equal the
-    eager chunk each time, 20 K2 and 2000 K7 launches per call (counted per replay),
-    and each result still its own after the next call."""
+    eager chunk each time, 20 K2 and K7's launches as the flow's schedule gives
+    them per call (counted per replay; at this size every level on chip, one
+    launch a warp), and each result still its own after the next call."""
     rects = [RECT, (3.0, 6.0, 40.0, 57.0), RECT] if with_rect else [None] * 3
     kept = []
     for (lo, hi), r in zip(((0, 5), (4, 9), (2, 7)), rects):
@@ -366,7 +367,10 @@ def test_card_chunk_graph_equals_the_eager_chunk(card, prealign, with_rect):
         got = tm._pairs_h_chunk(a, b, _rect(r), prealign=prealign)
         torch.cuda.synchronize()
         assert cuda_warp.bilinear_sample.launches == 20
-        assert flow.tvl1_iterate.launches == 5 * (3 * 100 + tm._FINE_ITERS)
+        levels = flow.tvl1_schedule(*a.shape, fine_iters=tm._FINE_ITERS)
+        assert flow.tvl1_iterate.launches == sum(lv.launches for lv in levels
+                                                 if not lv.onchip)
+        assert flow.tvl1_iterate_n.launches == sum(lv.launches for lv in levels if lv.onchip)
         assert torch.equal(got, want)
         kept.append((got, want))
     for got, want in kept:

@@ -43,7 +43,8 @@ def test_kernels_check_on_the_cpu_runs_every_plain_version(cpu_report):
     kernels = cpu_report["checks"]["kernels"]
     assert kernels["ok"], kernels
     assert kernels["device"] == "cpu" and kernels["failed"] == []
-    assert list(kernels["kernels"]) == ["K1", "K2", "K2m", "K3", "K4", "K6b", "K7"]
+    assert list(kernels["kernels"]) == ["K1", "K2", "K2m", "K3", "K4", "K6b", "K7",
+                                          "K7n"]
     for name, k in kernels["kernels"].items():
         assert k["ok"] and k["launches"] == 0 and k["max_abs_err"] == 0.0, name
         assert k["calls"] == (2 if name == "K2" else 1)   # K2: both edge modes

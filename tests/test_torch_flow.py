@@ -233,19 +233,119 @@ def test_tvl1_iterate_opcheck_and_fake():
     assert u.dtype == p.dtype == torch.float32
 
 
-@pytest.mark.parametrize("fault", ["dtype", "strides", "shape"])
+@pytest.mark.parametrize("fault", ["dtype", "strides", "shape", "n-dtype", "n-strides",
+                                   "n-shape", "n-negative", "n-off-chip"])
 def test_tvl1_iterate_refuses(fault):
     """What the kernel does not take is refused on every device: float64,
-    a non-contiguous tensor, or p of another size than u."""
-    u, p, rho_c, gx, gy = _iterate_inputs(4, 2, 8, 16)
+    a non-contiguous tensor, or p of another size than u; the on-chip op
+    (`tvl1_iterate_n`, faults "n-...") refuses the same, a negative count,
+    and images whose band would not fit on chip (the finest metrics
+    level)."""
+    op, _, fault = fault.rpartition("-")
+    shape = (1, 144, 256) if fault == "chip" else (2, 8, 16)
+    u, p, rho_c, gx, gy = _iterate_inputs(4, *shape)
+    n = -1 if fault == "negative" else 2
     if fault == "dtype":
         gx = gx.double()
     elif fault == "strides":
         u = u.transpose(2, 3).contiguous().transpose(2, 3)
-    else:
+    elif fault == "shape":
         p = p[..., :8, :15].contiguous()
+    if op:
+        with pytest.raises(ValueError, match="tvl1_iterate_n"):
+            flow.tvl1_iterate_n(u, p, rho_c, gx, gy, n, tau=TAU, lam=LAM, theta=THETA)
+        return
     with pytest.raises(ValueError, match="tvl1_iterate"):
         flow.tvl1_iterate(u, p, rho_c, gx, gy, tau=TAU, lam=LAM, theta=THETA)
+
+
+@pytest.mark.parametrize("shape,n", [((2, 16, 32), 5), ((3, 37, 45), 4), ((1, 72, 128), 3),
+                                     ((2, 5, 7), 6), ((2, 16, 32), 0)])
+def test_tvl1_iterate_n_equals_n_iterations(shape, n):
+    """The on-chip op's plain version (the op on the CPU) equals n chained
+    `tvl1_iterate_plain` calls bit for bit, ragged and single-image shapes
+    among them, each thresholding case taken; fresh tensors, the inputs
+    untouched, copies of them at n = 0."""
+    args = _iterate_inputs(5, *shape)
+    kept = [t.clone() for t in args]
+    got = torch.ops.stabnet.tvl1_iterate_n(*args, n, TAU, LAM, THETA)
+    want = args[:2]
+    for _ in range(n):
+        want = flow.tvl1_iterate_plain(*want, *args[2:], tau=TAU, lam=LAM, theta=THETA)
+    assert all(map(torch.equal, got, want))
+    assert all(map(torch.equal, flow.tvl1_iterate_n(*args, n, tau=TAU, lam=LAM,
+                                                    theta=THETA), want))
+    assert all(map(torch.equal, args, kept))
+    assert not any(g.data_ptr() == a.data_ptr() for g in got for a in args)
+
+
+def test_tvl1_iterate_n_opcheck_and_fake():
+    """The on-chip op's schema, fake and CPU dispatch pass
+    `torch.library.opcheck`; under FakeTensorMode it gives u's and p's
+    shapes in float32, and refuses what the op refuses."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    args = _iterate_inputs(6, 2, 9, 14)
+    torch.library.opcheck(torch.ops.stabnet.tvl1_iterate_n.default,
+                          args + (3, TAU, LAM, THETA))
+    with FakeTensorMode() as mode:
+        fake = [mode.from_tensor(a) for a in args]
+        u, p = torch.ops.stabnet.tvl1_iterate_n(*fake, 3, TAU, LAM, THETA)
+        with pytest.raises(ValueError, match="tvl1_iterate_n"):
+            torch.ops.stabnet.tvl1_iterate_n(*fake, -1, TAU, LAM, THETA)
+    assert (tuple(u.shape), tuple(p.shape)) == ((2, 2, 9, 14), (2, 2, 2, 9, 14))
+    assert u.dtype == p.dtype == torch.float32
+
+
+@pytest.mark.parametrize("shape,fine_iters,onchip,launches,px,onchip_px", [
+    ((32, 144, 256), 100, [False, True, True, True], 515, 778_240_000, 188_416_000),
+    ((10, 288, 512), 40, [False, False, True, True], 710, 535_552_000, 56_320_000),
+])
+def test_onchip_levels_of_the_pyramids(shape, fine_iters, onchip, launches, px, onchip_px):
+    """The rule (`onchip_rows`, recorded as `Tvl1Level.onchip`): the
+    metrics chunk's three coarse levels go on chip, (32, 144, 256) stays on
+    one launch an iteration; training's two coarsest, (10, 288, 512) and
+    (10, 144, 256) stay.  Each on-chip level is one launch a warp, a band
+    within the block's pixels and the image within four blocks."""
+    levels = flow.tvl1_schedule(*shape, fine_iters=fine_iters)
+    assert [lv.onchip for lv in levels] == onchip
+    assert [lv.onchip for lv in levels] == [flow.onchip_rows(*lv.shape[1:]) > 0
+                                            for lv in levels]
+    assert sum(lv.launches for lv in levels) == launches
+    assert sum(lv.px for lv in levels) == px
+    assert sum(lv.px for lv in levels if lv.onchip) == onchip_px
+    for lv in levels:
+        _, h, w = lv.shape
+        rows = flow.onchip_rows(h, w)
+        assert lv.launches == lv.warps * (1 if lv.onchip else lv.iters)
+        if lv.onchip:
+            assert rows * w <= flow.ONCHIP_BLOCK_PX and -(-h // rows) <= flow.ONCHIP_CLUSTER
+        else:
+            assert -(-h // flow.ONCHIP_CLUSTER) * w > flow.ONCHIP_BLOCK_PX
+
+
+def test_onchip_levels_run_as_one_call_a_warp(monkeypatch):
+    """`tvl1_flow_eager` calls the on-chip op once a warp at the levels the
+    schedule puts on chip and K7 once an iteration elsewhere, and the flow
+    equals the one with every level on K7 bit for bit."""
+    a, b = _pair(2, 40, 72, [(0.8, -0.4)])
+    kw = dict(num_iters=4, fine_iters=3)
+    calls = []
+    for name in ("tvl1_iterate", "tvl1_iterate_n"):
+        original = getattr(flow, name)
+        monkeypatch.setattr(flow, name, lambda *x, _f=original, _n=name, **k: (
+            calls.append((_n, tuple(x[2].shape))), _f(*x, **k))[1])
+    got = flow.tvl1_flow_eager(_t(a), _t(b), **kw)
+    sched = flow.tvl1_schedule(1, 40, 72, **kw)
+    want_calls = []
+    for lv in sched[::-1]:
+        per_warp = [("tvl1_iterate_n", lv.shape)] if lv.onchip else \
+            [("tvl1_iterate", lv.shape)] * lv.iters
+        want_calls += per_warp * lv.warps
+    assert calls == want_calls
+    monkeypatch.setattr(flow, "onchip_rows", lambda h, w: 0)
+    assert not any(lv.onchip for lv in flow.tvl1_schedule(1, 40, 72, **kw))
+    assert torch.equal(flow.tvl1_flow_eager(_t(a), _t(b), **kw), got)
 
 
 @pytest.mark.parametrize("shape,fine_iters,want", [
@@ -273,8 +373,11 @@ def test_tvl1_schedule_is_the_pyramid_the_flow_runs(monkeypatch, shape, fine_ite
 
 def test_score_pairs_counts_the_flow_iterations():
     """On a tiny clip scored on the CPU under the profiler, each
-    `score.pairs` span's `tvl1_launches` and `tvl1_px` are its chunks'
-    iterations and pixel updates as the schedule gives them."""
+    `score.pairs` span's `tvl1_launches`, `tvl1_px` and `tvl1_onchip_px`
+    are its chunks' K7 launches on the card, pixel updates and those of the
+    on-chip launches, as the schedule gives them: at 24 x 32 every level
+    fits on chip, 5 launches a level; a metrics chunk at 144 x 256 makes
+    515 (test_onchip_levels_of_the_pyramids)."""
     from torch.profiler import ProfilerActivity, profile
 
     from stabnet_tpu_torch.eval.metrics import _EVAL_CHUNK, _FINE_ITERS, score_stabilized_clip
@@ -288,9 +391,10 @@ def test_score_pairs_counts_the_flow_iterations():
         score_stabilized_clip(frames, gray, (24, 32), device="cpu")
     pairs = [s for s in TRACER.spans(t0, time.time_ns()) if s.name == "score.pairs"]
     sched = flow.tvl1_schedule(_EVAL_CHUNK, 24, 32, fine_iters=_FINE_ITERS)
-    launches = sum(lv.warps * lv.iters for lv in sched)
     px = sum(lv.warps * lv.iters * lv.shape[0] * lv.shape[1] * lv.shape[2] for lv in sched)
+    assert all(lv.onchip for lv in sched)
     assert len(pairs) == 3            # output and input stability, cross-video
     for s in pairs:
-        assert s.counters["tvl1_launches"] == launches == 5 * (100 * 3 + 100)
+        assert s.counters["tvl1_launches"] == sum(lv.launches for lv in sched) == 5 * 4
         assert s.counters["tvl1_px"] == px
+        assert s.counters["tvl1_onchip_px"] == px

@@ -577,3 +577,35 @@ def test_tvl1_iterate_matches_plain_on_the_card(shape):
         want = flow.tvl1_iterate_plain(*want, *cpu[2:], **kw)
         assert _equal(got, plain) and _equal(tuple(t.cpu() for t in got), want)
     assert all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 72, 128), (32, 32, 64), (32, 16, 32), (10, 72, 128),
+                                   (10, 32, 64), (3, 70, 100), (1, 37, 45), (2, 5, 7)])
+def test_tvl1_iterate_n_matches_chained_k7_on_the_card(shape):
+    """K7 on chip (ops/flow.py `tvl1_iterate_n`), 100 iterations in one
+    launch: bit for bit 100 chained K7 launches, at 0 iterations a copy of
+    its inputs, and bit for bit its plain version on the CPU at 3; its
+    inputs untouched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from stabnet_tpu_torch.ops import flow
+
+    rng = np.random.RandomState(11)
+    B, H, W = shape
+    cpu = [torch.from_numpy((rng.randn(*s) * k).astype(np.float32))
+           for s, k in (((B, 2, H, W), 2.0), ((B, 2, 2, H, W), 0.5), ((B, H, W), 20.0),
+                        ((B, H, W), 10.0), ((B, H, W), 10.0))]
+    card = [t.cuda() for t in cpu]
+    kw = dict(tau=0.25, lam=0.15, theta=0.3)
+    before = flow.tvl1_iterate_n.launches
+    got = flow.tvl1_iterate_n(*card, 100, **kw)
+    assert flow.tvl1_iterate_n.launches == before + 1
+    want = card[:2]
+    for _ in range(100):
+        want = flow.tvl1_iterate(*want, *card[2:], **kw)
+    assert _equal(got, want)
+    assert _equal(flow.tvl1_iterate_n(*card, 0, **kw), tuple(card[:2]))
+    three = flow.tvl1_iterate_n(*card, 3, **kw)
+    assert _equal(tuple(t.cpu() for t in three), flow.tvl1_iterate_n_plain(*cpu, 3, **kw))
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu))

@@ -518,9 +518,9 @@ def test_launch_record_follows_the_capturing_stream(monkeypatch):
     assert record == {cuda_warp.bilinear_sample: 1, cuda_warp.bilinear_splat: 1,
                       cuda_warp.sample_map_grad: 1}
     assert cuda_warp._stream_records == {}
-    assert [k.launches for k in cuda_warp.KERNELS] == [1, 1, 0, 0, 0, 0, 0]
+    assert [k.launches for k in cuda_warp.KERNELS] == [1, 1, 0, 0, 0, 0, 0, 0]
     cuda_warp.add_launches(record)
-    assert [k.launches for k in cuda_warp.KERNELS] == [2, 1, 0, 0, 1, 1, 0]
+    assert [k.launches for k in cuda_warp.KERNELS] == [2, 1, 0, 0, 1, 1, 0, 0]
     cuda_warp.reset_launch_counts()
 
 
@@ -613,7 +613,8 @@ def test_card_train_graph_equals_the_eager_step(card):
         (STEPS,) * 4
     assert launches == {"bilinear_sample": 2 * STEPS, "warp_mesh": 0,
                         "warp_uint8_cf_lowres": 0, "warp_uint8_cf": 0,
-                        "bilinear_splat": STEPS, "sample_map_grad": STEPS, "tvl1_iterate": 0}
+                        "bilinear_splat": STEPS, "sample_map_grad": STEPS, "tvl1_iterate": 0,
+                        "tvl1_iterate_n": 0}
 
 
 @pytest.mark.cuda
